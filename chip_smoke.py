@@ -10,8 +10,10 @@ failure exits non-zero, nothing is caught and carried past):
   1. build the CUDA kernels from csrc/ (nvcc, sm_90a), print the seconds
      and each kernel's register/spill report;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the shapes the main path gives it, with torch.equal (integer
-     arithmetic: the tolerance is zero), and time both with CUDA events;
+     the shapes the main path gives it (B1 at 8,192, 64 and 1 elements),
+     with torch.equal (integer arithmetic: the tolerance is zero); time
+     each kernel alone (torch.profiler, three repeats), through its
+     wrapper (CUDA events, three repeats), and its plain version;
   3. verify_commit_range over 54 commits of a 150-validator set (one
      8,192-signature bucket, 150 unique keys) with the launch counts set
      to 0 just before and read just after; then verify_batch_eq over every
@@ -21,7 +23,9 @@ failure exits non-zero, nothing is caught and carried past):
      attribute exactly that signature through kernel_sig;
   5. cross-check 256 bitmap entries against host single verification;
   6. a breakdown of one range-sized `kernel_eq`: host prep, copy, wall
-     time, the card's busy time and idle share (torch.profiler).
+     time, the card's busy time and idle share, each kernel's summed
+     device time (torch.profiler), and B1's host time in `field.mul`
+     with its calls by size.
 
 Prints the card's name and power limit, `breakdown`, `slice` and
 `kernels` JSON lines, and last {"ok": true, "device": {...}}. Imports nothing of JAX
@@ -44,21 +48,26 @@ TAMPER_COMMIT, TAMPER_VAL = 20, 5
 SEED = 20261016
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
-# CUDA-core float32 rate
-# (an FMA counted as two operations) used as the int32 bound. Hopper
-# issues int32 multiply-adds at half that lane rate, so the operation
+# CUDA-core float32 rate (an FMA counted as two operations). B1 and B2
+# run their convolutions in FP32 FFMA at that rate; the carries, and B3's
+# int32 multiply-adds, issue at half of it, so for those the operation
 # bound below is optimistic by up to 2x.
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 
-# int32 operations per element, counted from the kernels' arithmetic
-# (a multiply-add is two operations, as in the peak rate):
+# Operations per element, counted from the kernels' arithmetic (a
+# multiply-add is two operations, as in the peak rate):
 #   multiply: 32x32 convolution (2048), fold x38 (64), 4 carry passes of
 #   and/shift/add over 32 limbs plus the x38 wrap (4 * 97)
-FE_MUL_OPS = 2 * 32 * 32 + 2 * 32 + 4 * (3 * 32 + 1)
+#   squaring: the 496 cross products and 32 squares (2 * 528), doubling
+#   the 64 cross sums (64), then the same fold and carries
+FE_CARRY_OPS = 4 * (3 * 32 + 1)
+FE_MUL_OPS = 2 * 32 * 32 + 2 * 32 + FE_CARRY_OPS
+FE_SQR_OPS = 2 * 528 + 64 + 2 * 32 + FE_CARRY_OPS
 FE_SUB_OPS = 2 * 32 + 2 * (3 * 32 + 1)  # + 8p, - b, two carry passes
 FE_ADD_OPS = 32 + (3 * 32 + 1)
-POW22523_MULS = 262  # 251 squarings + 11 multiplies (csrc/fe_pow22523.cu)
+# the pow22523 chain: 251 squarings + 11 multiplies (csrc/fe_pow22523.cu)
+POW22523_OPS = 251 * FE_SQR_OPS + 11 * FE_MUL_OPS
 ADD_CACHED_OPS = 8 * FE_MUL_OPS + 3 * FE_SUB_OPS + 3 * FE_ADD_OPS
 LIMB_BYTES = 32 * 4
 
@@ -122,31 +131,39 @@ def check_kernels(dev) -> list[dict]:
 
     rows = []
 
-    def record(kernel, run, plain, n_bytes, n_ops, reps):
+    def record(kernel, m, run, plain, n_bytes, n_ops, reps):
         got, want = run(), plain()
         torch.cuda.synchronize()
         got_t = torch.stack(list(got)) if isinstance(got, tuple) else got
         want_t = torch.stack(list(want)) if isinstance(want, tuple) else want
         if not torch.equal(got_t, want_t):
-            raise AssertionError(f"{kernel.name}: kernel disagrees with its plain version")
+            raise AssertionError(f"{kernel.name} (m={m}): kernel disagrees with its plain version")
         err = int((got_t - want_t).abs().max().item())
         bound_ms, bound_by = _bound(n_bytes, n_ops)
-        wrapper_ms = _time_ms(run, reps)
-        ms = _device_ms(run, reps, name=f"{kernel.name}_kernel")
+        # the kernel alone on the card (profiler), three repeats
+        repeats = [_device_ms(run, reps, name=f"{kernel.name}_kernel") for _ in range(3)]
+        wrappers = [_time_ms(run, reps) for _ in range(3)]
+        measured = sorted(r for r in repeats if r is not None)
+        ms = measured[len(measured) // 2] if measured else None
+        wrapper_ms = sorted(wrappers)[1]
         plain_ms = _time_ms(plain, max(1, reps // 5))
         rows.append({
             "name": kernel.name,
+            "m": m,
             "route": "cuda",
             "source": f"tendermint_tpu_torch/crypto/cuda/csrc/{kernel.source}.cu",
             "replaces": kernel.replaces,
             "max_abs_err": err,
             "match": True,
-            # the kernel alone on the card (profiler), else the CUDA-event
-            # time per wrapper call, which includes the host's launch gap
+            # else the CUDA-event time per wrapper call, which includes the
+            # host's launch gap
             "ms": ms if ms is not None else wrapper_ms,
             "ms_source": "profiler" if ms is not None else "cuda_events",
-            "kernel_ms": ms if ms is not None else wrapper_ms,
+            "ms_repeats": repeats,
+            "share_of_bound": bound_ms / (ms if ms is not None else wrapper_ms),
+            # CUDA events per call through the wrapper: what a caller pays
             "wrapper_ms": wrapper_ms,
+            "wrapper_ms_repeats": wrappers,
             "plain_ms": plain_ms,
             "plain_device_ms": _device_ms(plain, 1),
             "bound_ms": bound_ms,
@@ -154,23 +171,26 @@ def check_kernels(dev) -> list[dict]:
             "library_ms": None,  # no single PyTorch call computes these
         })
 
-    # B1 at 8,192 elements (the R-side width), row 0 the all-511 worst case
-    a, b = limbs(8192), limbs(8192)
-    a[0], b[0] = 511, 511
-    record(F.FE_MUL, lambda: F.mul(a, b), lambda: F._mul_plain(a, b),
-           3 * LIMB_BYTES * 8192, FE_MUL_OPS * 8192, reps=200)
+    # B1 at 8,192 elements (the R-side width), row 0 the all-511 worst
+    # case; and at 1 and 64 elements, where most main-path launches land
+    for m, reps in ((8192, 200), (64, 1000), (1, 1000)):
+        a, b = limbs(m), limbs(m)
+        a[0], b[0] = 511, 511
+        record(F.FE_MUL, m, lambda a=a, b=b: F.mul(a, b), lambda a=a, b=b: F._mul_plain(a, b),
+               3 * LIMB_BYTES * m, FE_MUL_OPS * m, reps=reps)
 
     # B2 at 8,447 elements: 255 unique keys + 8,192 R points, one decompress
     z = limbs(8447)
-    record(F.FE_POW22523, lambda: F.pow22523(z), lambda: F._pow22523_plain(z),
-           2 * LIMB_BYTES * 8447, POW22523_MULS * FE_MUL_OPS * 8447, reps=20)
+    z[0] = 511
+    record(F.FE_POW22523, 8447, lambda: F.pow22523(z), lambda: F._pow22523_plain(z),
+           2 * LIMB_BYTES * 8447, POW22523_OPS * 8447, reps=20)
 
     # B3 at the R-side MSM: 16 windows x g = 512 blocks = 8,192 chains of
     # 15 cached additions
     chains, steps = 16 * 512, msm._BLOCK - 1
     first = curve.Point(*(limbs(chains) for _ in range(4)))
     rest = curve.CachedPoint(*(limbs(steps, chains) for _ in range(4)))
-    record(msm.SCAN_BLOCKS, lambda: msm.scan_blocks(first, rest),
+    record(msm.SCAN_BLOCKS, chains, lambda: msm.scan_blocks(first, rest),
            lambda: msm._scan_blocks_plain(first, rest),
            chains * LIMB_BYTES * 4 * (1 + steps + steps + 1),
            chains * steps * ADD_CACHED_OPS, reps=20)
@@ -331,6 +351,28 @@ def breakdown(dev, entries) -> dict:
     step()
     wall = time.perf_counter() - t4
     events = _device_events(step)
+
+    # B1's host side inside one kernel_eq: seconds spent in field.mul (the
+    # wrapper, its checks and the ctypes launch), and its calls by size
+    from tendermint_tpu_torch.crypto.cuda import field as F
+
+    real_mul, mul_s, mul_calls = F.mul, [0.0], {}
+
+    def timed_mul(a, b):
+        t = time.perf_counter()
+        out = real_mul(a, b)
+        mul_s[0] += time.perf_counter() - t
+        m = out.numel() // F.LIMBS
+        mul_calls[m] = mul_calls.get(m, 0) + 1
+        return out
+
+    F.mul = timed_mul
+    try:
+        t5 = time.perf_counter()
+        step()
+        timed_wall = time.perf_counter() - t5
+    finally:
+        F.mul = real_mul
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
     by_name: dict[str, list] = {}
     for e in events:
@@ -354,6 +396,11 @@ def breakdown(dev, entries) -> dict:
         "device_idle_share": (1 - busy / wall) if events else None,
         "device_activities": len(events),
         "ported_kernels_device_ms": ported,
+        "fe_mul_calls": sum(mul_calls.values()),
+        "fe_mul_host_s": mul_s[0],
+        "fe_mul_host_ms_per_call": mul_s[0] / max(1, sum(mul_calls.values())) * 1e3,
+        "fe_mul_calls_by_m": {str(m): n for m, n in sorted(mul_calls.items())},
+        "kernel_eq_wall_s_with_fe_mul_timed": timed_wall,
         "top_device_ms": [[name[:140], ms, n] for name, (ms, n) in top],
     }
 
@@ -442,7 +489,11 @@ def main() -> int:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")
     drive_tampered(dev, entries)
-    print(json.dumps({"breakdown": breakdown(dev, entries)}))
+    bd = breakdown(dev, entries)
+    print(json.dumps({"breakdown": bd}))
+    for row in rows:
+        # the kernel's summed device time inside one main-path kernel_eq
+        row["main_path_device_ms"] = bd["ported_kernels_device_ms"][row["name"]]
 
     print(json.dumps({"slice": run["slice"]}))
     print(json.dumps({"kernels": rows}))

@@ -8,9 +8,10 @@ so a second process reuses them and an edited source rebuilds. Nothing is
 built at import: the first launch of any kernel builds them all.
 
 Every C launcher takes its pointers, sizes, the CUDA device index and the
-stream, launches on that stream, and returns `cudaGetLastError()`;
-`Kernel.__call__` raises if that is not 0. There is no fallback: a kernel
-that does not build or launch is an error.
+stream, makes the device current only if another one is
+(csrc/launch.cuh), launches on that stream, and returns
+`cudaGetLastError()`; `Kernel.__call__` raises if that is not 0. There
+is no fallback: a kernel that does not build or launch is an error.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
@@ -127,10 +130,11 @@ class Kernel:
 
 def stream_args(t) -> tuple[int, int]:
     """(device index, raw stream handle) of PyTorch's current stream on
-    the device of tensor `t`: what every launcher takes last."""
-    import torch
-
-    return t.device.index or 0, torch.cuda.current_stream(t.device).cuda_stream
+    the device of CUDA tensor `t`: what every launcher takes last. Read
+    straight from PyTorch's C layer, with no Stream object built per
+    launch."""
+    index = t.get_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)
 
 
 P = ctypes.c_void_p

@@ -1,24 +1,91 @@
 // B1: batched GF(2^255 - 19) multiply, (M, 32) x (M, 32) -> (M, 32) int32.
 // Replaces tendermint_tpu/crypto/tpu/pallas_field.py _mul_limbs_first
-// (_mul_kernel -> _conv_mod). See fe25519.cuh for layout and exactness.
-#include "fe25519.cuh"
+// (_mul_kernel -> _conv_mod).
+//
+// Bound on an H100 by bytes: 384 bytes per element (two operands in, one
+// result out) for one multiply. So the kernel moves them at full width: a
+// block stages its tile of 32 elements of each operand into shared memory
+// with 16-byte cp.async, neighbouring threads on neighbouring addresses,
+// into rows padded to 36 words so that the lanes reading their own rows
+// do not collide on banks. The multiply itself is fe25519_group.cuh's,
+// with no shuffles. The result goes back through the same rows and out
+// with 16-byte coalesced stores.
+//
+// An operand with row step 0 is one element broadcast against every row
+// (a field constant), read in place instead of copied M times.
+#include "fe25519_group.cuh"
+#include "launch.cuh"
 
-__global__ void __launch_bounds__(128)
-fe_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
-              int* __restrict__ out, long long m) {
-  long long e = warp_element();
-  if (e >= m) return;  // whole warp leaves together: shuffles stay full
-  int lane = threadIdx.x & 31;
-  long long off = e * 32 + lane;
-  out[off] = fe::mul(a[off], b[off], lane);
+namespace {
+
+constexpr int kElems = 32;                       // elements per block
+constexpr int kChunks = feg::kLimbs / 4;         // 16-byte chunks per element
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  int n = valid ? 16 : 0;  // 0: zero-fill, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n)
+               : "memory");
 }
 
-extern "C" int fe_mul_launch(const void* a, const void* b, void* out,
-                             long long m, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+template <int G>
+__global__ void __launch_bounds__(kElems * G)
+fe_mul_kernel(const int* __restrict__ a, int a_step, const int* __restrict__ b, int b_step,
+              int* __restrict__ out, long long m) {
+  __shared__ __align__(16) int ta[kElems * feg::kRow];
+  __shared__ __align__(16) int tb[kElems * feg::kRow];
+  __shared__ __align__(16) unsigned sh[kElems * feg::kGroupWords<G> + 4];
+  const long long e0 = (long long)blockIdx.x * kElems;
+
+  for (int c = threadIdx.x; c < kElems * kChunks; c += kElems * G) {
+    const int el = c / kChunks, part = c % kChunks;
+    const bool valid = e0 + el < m;
+    const long long row = valid ? e0 + el : 0;
+    cp_async16(&ta[el * feg::kRow + 4 * part], a + row * a_step + 4 * part, valid);
+    cp_async16(&tb[el * feg::kRow + 4 * part], b + row * b_step + 4 * part, valid);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int el = threadIdx.x / G, q = threadIdx.x % G;
+  const feg::Group<G> g = feg::make_group<G>(sh + el * feg::kGroupWords<G>, q);
+  const feg::Fe<G> r =
+      feg::mul(g, feg::load<G>(&ta[el * feg::kRow], q), feg::load<G>(&tb[el * feg::kRow], q));
+  // each lane read, and now overwrites, only its own limbs of the row
+  feg::store(&ta[el * feg::kRow], r, q);
+  __syncthreads();
+
+  for (int c = threadIdx.x; c < kElems * kChunks; c += kElems * G) {
+    const int el = c / kChunks, part = c % kChunks;
+    if (e0 + el < m) {
+      *reinterpret_cast<int4*>(out + (e0 + el) * feg::kLimbs + 4 * part) =
+          *reinterpret_cast<const int4*>(&ta[el * feg::kRow + 4 * part]);
+    }
+  }
+}
+
+template <int G>
+cudaError_t launch(const int* a, int a_step, const int* b, int b_step, int* out, long long m,
+                   cudaStream_t stream) {
+  unsigned blocks = (unsigned)((m + kElems - 1) / kElems);
+  fe_mul_kernel<G><<<blocks, kElems * G, 0, stream>>>(a, a_step, b, b_step, out, m);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// a_step, b_step: ints from one element to the next (32, or 0 for one
+// element broadcast). `group`: lanes per element (1 or 4).
+extern "C" int fe_mul_launch(const void* a, int a_step, const void* b, int b_step, void* out,
+                             long long m, int group, int device, void* stream) {
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  fe_mul_kernel<<<blocks_for(m), 32 * kWarpsPerBlock, 0,
-                  (cudaStream_t)stream>>>((const int*)a, (const int*)b,
-                                          (int*)out, m);
-  return (int)cudaGetLastError();
+  const int *ai = (const int*)a, *bi = (const int*)b;
+  int* o = (int*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (group) {
+    case 1: return (int)launch<1>(ai, a_step, bi, b_step, o, m, s);
+    case 4: return (int)launch<4>(ai, a_step, bi, b_step, o, m, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,53 +1,81 @@
-// B2: z^(2^252 - 3) over (M, 32) int32 limbs, the whole 254-multiply
-// addition chain in one launch. Replaces
+// B2: z^(2^252 - 3) over (M, 32) int32 limbs, the whole addition chain
+// (251 squarings and 11 multiplies) in one launch. Replaces
 // tendermint_tpu/crypto/tpu/pallas_field.py _pow22523_limbs_first
-// (_pow22523_kernel). Device memory is touched twice per element (load z,
-// store the result); z, t0, t1 and t2 live in four registers per lane.
-#include "fe25519.cuh"
+// (_pow22523_kernel).
+//
+// Bound on an H100 by operations, not bytes: 262 multiplies per 256 bytes
+// moved. The chain uses fe25519_group.cuh's shuffle-free multiply and its
+// dedicated squaring; device memory is touched twice per element (load z,
+// store the result), and z, t0, t1, t2 stay in registers.
+#include "fe25519_group.cuh"
+#include "launch.cuh"
 
-__device__ __forceinline__ int sq(int x, int k, int lane) {
+namespace {
+
+constexpr int kElems = 32;  // elements per block
+
+template <int G>
+__device__ __forceinline__ feg::Fe<G> sqn(const feg::Group<G>& g, feg::Fe<G> x, int k) {
 #pragma unroll 1
-  for (int i = 0; i < k; ++i) x = fe::mul(x, x, lane);
+  for (int i = 0; i < k; ++i) x = feg::sqr(g, x);
   return x;
 }
 
-__global__ void __launch_bounds__(128)
-fe_pow22523_kernel(const int* __restrict__ zin, int* __restrict__ out,
-                   long long m) {
-  long long e = warp_element();
-  if (e >= m) return;
-  int lane = threadIdx.x & 31;
-  long long off = e * 32 + lane;
-  int z = zin[off];
-  int t0 = sq(z, 1, lane);                // 2
-  int t1 = sq(t0, 2, lane);               // 8
-  t1 = fe::mul(z, t1, lane);              // 9
-  t0 = fe::mul(t0, t1, lane);             // 11
-  t0 = sq(t0, 1, lane);                   // 22
-  t0 = fe::mul(t1, t0, lane);             // 31 = 2^5 - 1
-  t1 = sq(t0, 5, lane);
-  t0 = fe::mul(t1, t0, lane);             // 2^10 - 1
-  t1 = sq(t0, 10, lane);
-  t1 = fe::mul(t1, t0, lane);             // 2^20 - 1
-  int t2 = sq(t1, 20, lane);
-  t1 = fe::mul(t2, t1, lane);             // 2^40 - 1
-  t1 = sq(t1, 10, lane);
-  t0 = fe::mul(t1, t0, lane);             // 2^50 - 1
-  t1 = sq(t0, 50, lane);
-  t1 = fe::mul(t1, t0, lane);             // 2^100 - 1
-  t2 = sq(t1, 100, lane);
-  t1 = fe::mul(t2, t1, lane);             // 2^200 - 1
-  t1 = sq(t1, 50, lane);
-  t0 = fe::mul(t1, t0, lane);             // 2^250 - 1
-  t0 = sq(t0, 2, lane);                   // 2^252 - 4
-  out[off] = fe::mul(t0, z, lane);        // 2^252 - 3
+template <int G>
+__global__ void __launch_bounds__(kElems * G)
+fe_pow22523_kernel(const int* __restrict__ zin, int* __restrict__ out, long long m) {
+  __shared__ __align__(16) unsigned sh[kElems * feg::kGroupWords<G> + 4];
+  const int el = threadIdx.x / G, q = threadIdx.x % G;
+  const long long e = (long long)blockIdx.x * kElems + el;
+  const feg::Group<G> g = feg::make_group<G>(sh + el * feg::kGroupWords<G>, q);
+  // past the end: compute on element 0 alongside the group, store nothing
+  const feg::Fe<G> z = feg::load<G>(zin + (e < m ? e : 0) * feg::kLimbs, q);
+  using feg::mul;
+  feg::Fe<G> t0 = sqn(g, z, 1);    // 2
+  feg::Fe<G> t1 = sqn(g, t0, 2);   // 8
+  t1 = mul(g, z, t1);              // 9
+  t0 = mul(g, t0, t1);             // 11
+  t0 = sqn(g, t0, 1);              // 22
+  t0 = mul(g, t1, t0);             // 31 = 2^5 - 1
+  t1 = sqn(g, t0, 5);
+  t0 = mul(g, t1, t0);             // 2^10 - 1
+  t1 = sqn(g, t0, 10);
+  t1 = mul(g, t1, t0);             // 2^20 - 1
+  feg::Fe<G> t2 = sqn(g, t1, 20);
+  t1 = mul(g, t2, t1);             // 2^40 - 1
+  t1 = sqn(g, t1, 10);
+  t0 = mul(g, t1, t0);             // 2^50 - 1
+  t1 = sqn(g, t0, 50);
+  t1 = mul(g, t1, t0);             // 2^100 - 1
+  t2 = sqn(g, t1, 100);
+  t1 = mul(g, t2, t1);             // 2^200 - 1
+  t1 = sqn(g, t1, 50);
+  t0 = mul(g, t1, t0);             // 2^250 - 1
+  t0 = sqn(g, t0, 2);              // 2^252 - 4
+  t0 = mul(g, t0, z);              // 2^252 - 3
+  if (e < m) feg::store(out + e * feg::kLimbs, t0, q);
 }
 
-extern "C" int fe_pow22523_launch(const void* z, void* out, long long m,
+template <int G>
+cudaError_t launch(const int* z, int* out, long long m, cudaStream_t stream) {
+  unsigned blocks = (unsigned)((m + kElems - 1) / kElems);
+  fe_pow22523_kernel<G><<<blocks, kElems * G, 0, stream>>>(z, out, m);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// `group`: lanes per element (1 or 4).
+extern "C" int fe_pow22523_launch(const void* z, void* out, long long m, int group,
                                   int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  fe_pow22523_kernel<<<blocks_for(m), 32 * kWarpsPerBlock, 0,
-                       (cudaStream_t)stream>>>((const int*)z, (int*)out, m);
-  return (int)cudaGetLastError();
+  const int* zi = (const int*)z;
+  int* o = (int*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (group) {
+    case 1: return (int)launch<1>(zi, o, m, s);
+    case 4: return (int)launch<4>(zi, o, m, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -11,6 +11,7 @@
 //
 // C need not be a multiple of anything: a warp past the end returns.
 #include "fe25519.cuh"
+#include "launch.cuh"
 
 __global__ void __launch_bounds__(128)
 scan_blocks_kernel(const int* __restrict__ fx, const int* __restrict__ fy,
@@ -48,7 +49,7 @@ extern "C" int scan_blocks_launch(const void* fx, const void* fy,
                                   void* oy, void* oz, void* ot,
                                   long long chains, int steps, int device,
                                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   scan_blocks_kernel<<<blocks_for(chains), 32 * kWarpsPerBlock, 0,
                        (cudaStream_t)stream>>>(

@@ -15,16 +15,22 @@ Kernels in this module (CUDA C++, csrc/):
   B2 `pow22523` → csrc/fe_pow22523.cu, replacing
      pallas_field._pow22523_limbs_first.
 
-Both run one field element per warp, lane = limb (csrc/fe25519.cuh). What
-bounds them on an H100: a lone multiply moves 384 bytes for ~2,500 int32
-operations (6.5 per byte, under the card's ~20 operations per byte), so
-B1 is bound by bytes; the pow22523 chain does 262 multiplies per 256
-bytes moved, so B2 is bound by int32 operations. The design keeps every
-operand in registers (one per lane) and B2 keeps the whole chain in one
-launch, so no intermediate touches device memory; the cure for B1's
-bytes is the same fusion (more multiplies per launch). As built, both
-issue 68 warp shuffles per multiply, and shuffle issue, not the multiply-
-adds, is what they wait on (csrc/fe25519.cuh, PERF.md).
+Both use the shuffle-free multiply of csrc/fe25519_group.cuh: a group of
+lanes owns one field element, its limbs in registers, and the lanes
+exchange operands and carries through shared memory, never through warp
+shuffles; the convolution runs in exact FP32 FFMA (every partial sum
+< 2^24) and the fold and the four carry passes in int32, so the limbs
+are the plain version's. B2's 251 squarings use a dedicated squaring.
+What bounds them on an H100: a lone multiply moves 384 bytes for ~2,500
+operations (6.5 per byte, under the card's ~20 per byte), so B1 is bound
+by bytes and stages its operands through shared memory with coalesced
+16-byte copies; the pow22523 chain does 262 multiplies per 256 bytes
+moved, so B2 is bound by operations and keeps the whole chain in one
+launch, no intermediate touching device memory. Tensor cores do not fit
+(no operand is shared across elements; see the header). On the main
+path B1's cost is the host side of its ~1,000 small launches, so its
+wrapper does no more than checks and one ctypes call when the operands
+already qualify.
 
 On a CUDA tensor `mul` and `pow22523` launch their kernel or raise; the
 plain PyTorch versions (`_mul_plain`, `_pow22523_plain`) run only for
@@ -107,35 +113,62 @@ def _carry_pass(c: torch.Tensor) -> torch.Tensor:
 
 # -- B1: field multiply ------------------------------------------------------
 
+#: lanes that share one field element in B1 and B2 (1 or 4)
+LANES_PER_ELEMENT = 4
+
 FE_MUL = _build.Kernel(
     "fe_mul",
     "fe_mul",
-    [_build.P, _build.P, _build.P, _build.I64, _build.I32, _build.P],
+    [_build.P, _build.I32, _build.P, _build.I32, _build.P, _build.I64, _build.I32,
+     _build.I32, _build.P],
     replaces="tendermint_tpu/crypto/tpu/pallas_field.py:183",
 )
 
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Field multiply. Inputs: limbs < 2^9. Output: limbs ≤ 293."""
-    a, b = torch.broadcast_tensors(a, b)
     if on_card(a):
         return _mul_cuda(a, b)
     return _mul_plain(a, b)
 
 
-def _flat(t: torch.Tensor) -> torch.Tensor:
-    if t.dtype != torch.int32 or t.shape[-1] != LIMBS:
+def _check(t: torch.Tensor) -> None:
+    if t.dtype != torch.int32 or t.shape[-1:] != (LIMBS,):
         raise ValueError(f"expected (..., 32) int32 limbs, got {t.dtype} {tuple(t.shape)}")
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    _check(t)
     return t.reshape(-1, LIMBS).contiguous()
 
 
+def _operand(t: torch.Tensor, shape: torch.Size) -> tuple[torch.Tensor, int]:
+    """(tensor, row step) that B1 and B2 read as rows of `shape`: the
+    tensor itself when it is contiguous and 16-byte aligned — with step
+    32, or step 0 when it is one element broadcast to every row — else a
+    contiguous copy. The kernels never see a stride they do not take."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        if t.shape == shape:
+            return t, LIMBS
+        if t.numel() == LIMBS:
+            return t, 0
+    return t.expand(shape).clone(memory_format=torch.contiguous_format), LIMBS
+
+
 def _mul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    a2, b2 = _flat(a), _flat(b)
-    out = torch.empty_like(a2)
-    if a2.shape[0]:
-        FE_MUL(a2.data_ptr(), b2.data_ptr(), out.data_ptr(), a2.shape[0],
-               *_build.stream_args(a2))
-    return out.reshape(a.shape)
+    _check(a)
+    _check(b)
+    if b.device != a.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+    shape = a.shape if a.shape == b.shape else torch.broadcast_shapes(a.shape, b.shape)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    m = out.numel() // LIMBS
+    if m:
+        a, a_step = _operand(a, shape)
+        b, b_step = _operand(b, shape)
+        FE_MUL(a.data_ptr(), a_step, b.data_ptr(), b_step, out.data_ptr(), m,
+               LANES_PER_ELEMENT, *_build.stream_args(out))
+    return out
 
 
 def _mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -198,7 +231,7 @@ def mul_scalar(a: torch.Tensor, k: int) -> torch.Tensor:
 FE_POW22523 = _build.Kernel(
     "fe_pow22523",
     "fe_pow22523",
-    [_build.P, _build.P, _build.I64, _build.I32, _build.P],
+    [_build.P, _build.P, _build.I64, _build.I32, _build.I32, _build.P],
     replaces="tendermint_tpu/crypto/tpu/pallas_field.py:281",
 )
 
@@ -207,12 +240,14 @@ def pow22523(z: torch.Tensor) -> torch.Tensor:
     """z^(2^252 - 3): the exponentiation used for inverse square roots in
     decompression (classic ed25519 addition chain)."""
     if on_card(z):
-        z2 = _flat(z)
-        out = torch.empty_like(z2)
-        if z2.shape[0]:
-            FE_POW22523(z2.data_ptr(), out.data_ptr(), z2.shape[0],
-                        *_build.stream_args(z2))
-        return out.reshape(z.shape)
+        _check(z)
+        out = torch.empty(z.shape, dtype=torch.int32, device=z.device)
+        m = out.numel() // LIMBS
+        if m:
+            z, _ = _operand(z, z.shape)
+            FE_POW22523(z.data_ptr(), out.data_ptr(), m, LANES_PER_ELEMENT,
+                        *_build.stream_args(out))
+        return out
     return _pow22523_plain(z)
 
 

@@ -306,20 +306,24 @@ def verify_batch_eq(
 
 class DeviceBatchVerifier(BatchVerifier):
     """BatchVerifier backed by `kernel_eq` on the card (the reference's
-    `TPUBatchVerifier`, crypto/crypto.go:46-54 interface). ed25519 only in
-    this slice: any other key type is refused at `add`."""
+    `TPUBatchVerifier`, crypto/crypto.go:46-54 interface). ed25519 keys go
+    through the kernel; every other key type is verified on the host
+    (`pub_key.verify_signature`), so a mixed validator set still gets one
+    complete bitmap. (sr25519 joins the kernel once the port has that
+    key type.)"""
 
     def __init__(self, device=DEFAULT_DEVICE, *, rand_bytes: RandBytes | None = None):
         self._device = resolve(device)
         self._rand_bytes = rand_bytes
         self._entries: list[ResolvedSig | None] = []
+        self._host_items: list[tuple[int, PubKey, bytes, bytes]] = []
 
     def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
-        if pub_key.TYPE != "ed25519":
-            raise ValueError(
-                f"DeviceBatchVerifier verifies ed25519 only, not {pub_key.TYPE!r}"
-            )
-        self._entries.append(resolve_ed25519(pub_key.bytes(), msg, sig))
+        if pub_key.TYPE == "ed25519":
+            self._entries.append(resolve_ed25519(pub_key.bytes(), msg, sig))
+        else:
+            self._host_items.append((len(self._entries), pub_key, msg, sig))
+            self._entries.append(None)
 
     def verify(self) -> tuple[bool, list[bool]]:
         results = [False] * len(self._entries)
@@ -328,4 +332,6 @@ class DeviceBatchVerifier(BatchVerifier):
                 self._entries, self._device, rand_bytes=self._rand_bytes
             )
             results = [bool(ok) for ok in bitmap]
+        for i, pk, msg, sig in self._host_items:
+            results[i] = pk.verify_signature(msg, sig)
         return all(results) and bool(results), results

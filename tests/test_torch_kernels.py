@@ -1,13 +1,18 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: without a card every test here skips (the check runs
-inside a fixture, not at import). On a machine with one:
+inside a fixture, not at import). On a machine with one (--noconftest:
+tests/conftest.py imports jax, which these tests do not need):
 
-    python -m pytest tests/test_torch_kernels.py -q
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Integer arithmetic: every comparison is exact (torch.equal). Shapes
-include ragged edges the kernels mask themselves (element and chain
-counts that are not multiples of the four warps in a block).
+include ragged edges the kernels mask themselves (element counts that
+are not multiples of B1's and B2's 32 elements per block, chain counts
+that are not multiples of B3's four warps), no element at all, the
+all-511 worst case of the FP32 convolution, and operands the wrappers
+must copy (a transposed view, a misaligned view) or read in place (a
+broadcast constant).
 """
 
 import numpy as np
@@ -36,7 +41,7 @@ def _limbs(rng, *shape, device):
     return torch.from_numpy(rng.integers(0, 512, shape + (32,), dtype=np.int32)).to(device)
 
 
-@pytest.mark.parametrize("m", [1, 3, 5, 4099])
+@pytest.mark.parametrize("m", [1, 3, 5, 4099, 31, 33, 64, 8193])
 def test_fe_mul_kernel_equals_plain(card, m):
     rng = np.random.default_rng(m)
     a, b = _limbs(rng, m, device=card), _limbs(rng, m, device=card)
@@ -51,7 +56,7 @@ def test_fe_mul_kernel_equals_plain(card, m):
     assert torch.equal(F.mul(stacked, stacked.flip(0)), F._mul_plain(stacked, stacked.flip(0)))
 
 
-@pytest.mark.parametrize("m", [1, 7, 513])
+@pytest.mark.parametrize("m", [1, 7, 513, 33, 8447])
 def test_fe_pow22523_kernel_equals_plain(card, m):
     rng = np.random.default_rng(100 + m)
     z = _limbs(rng, m, device=card)
@@ -81,6 +86,69 @@ def test_kernels_refuse_wrong_dtype(card):
         F.mul(x, x)
     with pytest.raises(ValueError):
         F.pow22523(x)
+    y = torch.zeros((4, 31), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        F.mul(y, y)
+    with pytest.raises(ValueError):
+        F.pow22523(y)
+    z = torch.zeros((4, 32), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        F.mul(z, z.cpu())
+
+
+@pytest.mark.parametrize("m", [1, 33, 8192])
+def test_worst_case_all_511(card, m):
+    """Every limb 511 in every row: the largest convolution coefficients
+    (511^2 * 32 < 2^23), where the FP32 sums are closest to inexact, for
+    the product (B1) and for the squarings that open B2's chain."""
+    x = torch.full((m, 32), 511, dtype=torch.int32, device=card)
+    assert torch.equal(F.mul(x, x), F._mul_plain(x, x))
+    assert torch.equal(F.pow22523(x), F._pow22523_plain(x))
+
+
+def test_empty_batch_launches_nothing(card):
+    x = torch.zeros((0, 32), dtype=torch.int32, device=card)
+    before = (F.FE_MUL.launches, F.FE_POW22523.launches)
+    got_mul, got_pow = F.mul(x, x), F.pow22523(x)
+    assert (F.FE_MUL.launches, F.FE_POW22523.launches) == before
+    assert got_mul.shape == (0, 32) and got_pow.shape == (0, 32)
+    assert F.mul(x, F.const("d", card)).shape == (0, 32)
+
+
+@pytest.mark.parametrize("m", [5, 40])
+def test_strided_and_misaligned_operands(card, m):
+    """Operands the kernels cannot read as they lie are copied first:
+    a transposed view (not contiguous) and a contiguous view that starts
+    4 bytes into its storage (not 16-byte aligned). Neither is read
+    wrong, nor is the input changed."""
+    rng = np.random.default_rng(400 + m)
+    wide = rng.integers(0, 512, (32, m), dtype=np.int32)
+    t = torch.from_numpy(wide).to(card).t()  # (m, 32), not contiguous
+    assert not t.is_contiguous()
+    flat = _limbs(rng, m + 1, device=card).reshape(-1)
+    odd = flat[1 : 1 + 32 * m].view(m, 32)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+    before_t, before_odd = t.clone(), odd.clone()
+    for a, b in ((t, odd), (odd, t), (t, F.const("d", card)), (F.const("d", card), odd)):
+        assert torch.equal(F.mul(a, b), F._mul_plain(a, b))
+    assert torch.equal(F.pow22523(t), F._pow22523_plain(t))
+    assert torch.equal(F.pow22523(odd), F._pow22523_plain(odd))
+    assert torch.equal(t, before_t) and torch.equal(odd, before_odd)
+
+
+def test_broadcast_shapes(card):
+    """Broadcasting beyond a single constant row: (4, 1, m) against
+    (1, 3, m), and a (1, 32) row against (m, 32)."""
+    rng = np.random.default_rng(500)
+    a = _limbs(rng, 4, 1, 7, device=card)
+    b = _limbs(rng, 1, 3, 7, device=card)
+    got = F.mul(a, b)
+    assert got.shape == (4, 3, 7, 32)
+    assert torch.equal(got, F._mul_plain(a, b))
+    row = _limbs(rng, 1, device=card)
+    c = _limbs(rng, 9, device=card)
+    assert torch.equal(F.mul(row, c), F._mul_plain(row, c))
+    assert torch.equal(F.mul(c, row), F._mul_plain(c, row))
 
 
 def test_msm_on_card_is_limb_identical_to_cpu(card):

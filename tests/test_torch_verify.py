@@ -3,7 +3,9 @@ the JAX package's, on the CPU, at the 64-signature bucket.
 
 Both sides get the same random coefficients: the JAX host prep draws them
 from os.urandom (monkeypatched here), the port's takes `rand_bytes`. The
-JAX kernels are compiled once for the module (about 40 s on a CPU)."""
+JAX kernels are compiled once for the module (about 40 s on a CPU), as
+the reference's own dispatch jits them, so its `TPUBatchVerifier` reuses
+the compilations."""
 
 import os
 
@@ -61,8 +63,8 @@ def cases():
     good = _items(N)
     bad = _tamper(good, BAD)
     rng = np.random.default_rng(31)
-    kernel_eq = jax.jit(JV._kernel_eq)
-    kernel_sig = jax.jit(JV._kernel)
+    kernel_eq = JV._get_kernel_eq()
+    kernel_sig = JV._get_kernel()
     out = {}
     mp = pytest.MonkeyPatch()
     try:
@@ -138,11 +140,15 @@ def test_bucket_ladder_matches_reference():
         assert V._is_warm_bucket(m) == JV._is_warm_bucket(m)
 
 
-def test_device_batch_verifier_interface():
-    items = _items(6)
-    bv = V.DeviceBatchVerifier("cpu", rand_bytes=lambda n: bytes(n))
+def test_device_batch_verifier_interface(cases):
+    """ed25519 entries through the batch kernels, any other key type on
+    the host, one bitmap — the same as the reference's TPUBatchVerifier
+    on a mixed batch with one valid and one invalid entry of each kind."""
+    from tendermint_tpu.crypto.ed25519 import Ed25519PubKey as JEd25519PubKey
     from tendermint_tpu_torch.crypto.ed25519 import Ed25519PubKey
 
+    items = _items(6)
+    bv = V.DeviceBatchVerifier("cpu", rand_bytes=lambda n: bytes(n))
     for p, m, s in items:
         bv.add(Ed25519PubKey(p), m, s)
     ok, results = bv.verify()
@@ -151,6 +157,17 @@ def test_device_batch_verifier_interface():
     class OtherKey(Ed25519PubKey):
         TYPE = "secp256k1"
 
-    with pytest.raises(ValueError, match="ed25519 only"):
-        bv.add(OtherKey(items[0][0]), b"m", b"s" * 64)
+    class JOtherKey(JEd25519PubKey):
+        TYPE = "secp256k1"
+
+    bad = _tamper(_tamper(items, 2), 3)
+    mixed = [(0, False), (1, True), (2, False), (3, True), (4, False)]  # (item, other key?)
+    ours = V.DeviceBatchVerifier("cpu")
+    ref = JV.TPUBatchVerifier()
+    for i, other in mixed:
+        p, m, s = bad[i]
+        ours.add((OtherKey if other else Ed25519PubKey)(p), m, s)
+        ref.add((JOtherKey if other else JEd25519PubKey)(p), m, s)
+    got, want = ours.verify(), ref.verify()
+    assert got == want == (False, [True, True, False, False, True])
     assert V.DeviceBatchVerifier("cpu").verify() == (False, [])
