@@ -18,8 +18,9 @@
 
 namespace {
 
-constexpr int kElems = 32;                       // elements per block
-constexpr int kChunks = feg::kLimbs / 4;         // 16-byte chunks per element
+constexpr int kElems = 32;                 // elements per block
+constexpr int kThreads = kElems * feg::kLanes;
+constexpr int kChunks = feg::kLimbs / 4;   // 16-byte chunks per element
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
@@ -28,16 +29,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                : "memory");
 }
 
-template <int G>
-__global__ void __launch_bounds__(kElems * G)
+__global__ void __launch_bounds__(kThreads)
 fe_mul_kernel(const int* __restrict__ a, int a_step, const int* __restrict__ b, int b_step,
               int* __restrict__ out, long long m) {
   __shared__ __align__(16) int ta[kElems * feg::kRow];
   __shared__ __align__(16) int tb[kElems * feg::kRow];
-  __shared__ __align__(16) unsigned sh[kElems * feg::kGroupWords<G> + 4];
+  __shared__ __align__(16) int sh[kElems * feg::kGroupWords];
   const long long e0 = (long long)blockIdx.x * kElems;
 
-  for (int c = threadIdx.x; c < kElems * kChunks; c += kElems * G) {
+  for (int c = threadIdx.x; c < kElems * kChunks; c += kThreads) {
     const int el = c / kChunks, part = c % kChunks;
     const bool valid = e0 + el < m;
     const long long row = valid ? e0 + el : 0;
@@ -47,15 +47,15 @@ fe_mul_kernel(const int* __restrict__ a, int a_step, const int* __restrict__ b, 
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  const int el = threadIdx.x / G, q = threadIdx.x % G;
-  const feg::Group<G> g = feg::make_group<G>(sh + el * feg::kGroupWords<G>, q);
-  const feg::Fe<G> r =
-      feg::mul(g, feg::load<G>(&ta[el * feg::kRow], q), feg::load<G>(&tb[el * feg::kRow], q));
+  const int el = threadIdx.x / feg::kLanes, q = threadIdx.x % feg::kLanes;
+  const feg::Group g = feg::make_group(sh + el * feg::kGroupWords, q);
+  const feg::Fe r =
+      feg::mul(g, feg::load(&ta[el * feg::kRow], q), feg::load(&tb[el * feg::kRow], q));
   // each lane read, and now overwrites, only its own limbs of the row
   feg::store(&ta[el * feg::kRow], r, q);
   __syncthreads();
 
-  for (int c = threadIdx.x; c < kElems * kChunks; c += kElems * G) {
+  for (int c = threadIdx.x; c < kElems * kChunks; c += kThreads) {
     const int el = c / kChunks, part = c % kChunks;
     if (e0 + el < m) {
       *reinterpret_cast<int4*>(out + (e0 + el) * feg::kLimbs + 4 * part) =
@@ -64,28 +64,16 @@ fe_mul_kernel(const int* __restrict__ a, int a_step, const int* __restrict__ b, 
   }
 }
 
-template <int G>
-cudaError_t launch(const int* a, int a_step, const int* b, int b_step, int* out, long long m,
-                   cudaStream_t stream) {
-  unsigned blocks = (unsigned)((m + kElems - 1) / kElems);
-  fe_mul_kernel<G><<<blocks, kElems * G, 0, stream>>>(a, a_step, b, b_step, out, m);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // a_step, b_step: ints from one element to the next (32, or 0 for one
-// element broadcast). `group`: lanes per element (1 or 4).
+// element broadcast to every row).
 extern "C" int fe_mul_launch(const void* a, int a_step, const void* b, int b_step, void* out,
-                             long long m, int group, int device, void* stream) {
+                             long long m, int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  const int *ai = (const int*)a, *bi = (const int*)b;
-  int* o = (int*)out;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (group) {
-    case 1: return (int)launch<1>(ai, a_step, bi, b_step, o, m, s);
-    case 4: return (int)launch<4>(ai, a_step, bi, b_step, o, m, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  unsigned blocks = (unsigned)((m + kElems - 1) / kElems);
+  fe_mul_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)a, a_step, (const int*)b, b_step, (int*)out, m);
+  return (int)cudaGetLastError();
 }

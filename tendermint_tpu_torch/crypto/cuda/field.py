@@ -2,9 +2,12 @@
 
 The port of tendermint_tpu/crypto/tpu/field.py, with the same public
 layout: a field element is an int32 tensor of shape (..., 32), limb i
-holding a (partially reduced) coefficient of 256^i, all limbs
-non-negative. Invariant between operations: limbs < 2^9 (`mul`, `sub`,
-`neg`, `mul_scalar` return limbs ≤ 293; `add` returns ≤ 369). The carry
+holding a (partially reduced) coefficient of 256^i. Invariant between
+operations: |limbs| < 2^9 (`mul`, `sub`, `neg`, `mul_scalar` return
+limbs ≤ 293; `add` returns ≤ 369). Limbs can dip slightly below zero:
+EIGHT_P is the reference's, whose `int_to_limbs(P_INT)` reduces p to 0,
+so `sub` and `neg` add 0, not 8p; the integer arithmetic (and the
+kernels) carry signed limbs exactly, and values stay right mod p. The carry
 schedule is the reference's (four passes after a multiply, two after a
 subtraction, one after an addition), so results are limb-identical to the
 JAX package, not just equal mod p.
@@ -15,12 +18,12 @@ Kernels in this module (CUDA C++, csrc/):
   B2 `pow22523` → csrc/fe_pow22523.cu, replacing
      pallas_field._pow22523_limbs_first.
 
-Both use the shuffle-free multiply of csrc/fe25519_group.cuh: a group of
-lanes owns one field element, its limbs in registers, and the lanes
-exchange operands and carries through shared memory, never through warp
-shuffles; the convolution runs in exact FP32 FFMA (every partial sum
-< 2^24) and the fold and the four carry passes in int32, so the limbs
-are the plain version's. B2's 251 squarings use a dedicated squaring.
+Both use the shuffle-free multiply of csrc/fe25519_group.cuh: four lanes
+own one field element, eight limbs each in registers, and exchange
+operands and carries through shared memory, never through warp
+shuffles; the convolution runs in exact FP32 FFMA (every accumulator
+sums at most 8 products, below 2^22) and the fold and the four carry
+passes in int32, so the limbs are the plain version's.
 What bounds them on an H100: a lone multiply moves 384 bytes for ~2,500
 operations (6.5 per byte, under the card's ~20 per byte), so B1 is bound
 by bytes and stages its operands through shared memory with coalesced
@@ -71,7 +74,8 @@ D_LIMBS = int_to_limbs(D_INT)
 D2_LIMBS = int_to_limbs(2 * D_INT)
 SQRT_M1_LIMBS = int_to_limbs(SQRT_M1_INT)
 ONE = int_to_limbs(1)
-# 8p in limb form: every limb dominates a (<2^9)-bounded subtrahend
+# the reference's "8p": int_to_limbs reduces p mod p, so this is all zeros
+# (kept for limb identity; see the module docstring)
 EIGHT_P = (8 * P_LIMBS).astype(np.int32)
 
 _CONSTS = {
@@ -113,27 +117,23 @@ def _carry_pass(c: torch.Tensor) -> torch.Tensor:
 
 # -- B1: field multiply ------------------------------------------------------
 
-#: lanes that share one field element in B1 and B2 (1 or 4)
-LANES_PER_ELEMENT = 4
-
 FE_MUL = _build.Kernel(
     "fe_mul",
     "fe_mul",
-    [_build.P, _build.I32, _build.P, _build.I32, _build.P, _build.I64, _build.I32,
-     _build.I32, _build.P],
+    [_build.P, _build.I32, _build.P, _build.I32, _build.P, _build.I64, _build.I32, _build.P],
     replaces="tendermint_tpu/crypto/tpu/pallas_field.py:183",
 )
 
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Field multiply. Inputs: limbs < 2^9. Output: limbs ≤ 293."""
+    """Field multiply. Inputs: |limbs| < 2^9. Output: limbs ≤ 293."""
     if on_card(a):
         return _mul_cuda(a, b)
     return _mul_plain(a, b)
 
 
 def _check(t: torch.Tensor) -> None:
-    if t.dtype != torch.int32 or t.shape[-1:] != (LIMBS,):
+    if t.dtype != torch.int32 or t.dim() == 0 or t.shape[-1] != LIMBS:
         raise ValueError(f"expected (..., 32) int32 limbs, got {t.dtype} {tuple(t.shape)}")
 
 
@@ -158,16 +158,16 @@ def _operand(t: torch.Tensor, shape: torch.Size) -> tuple[torch.Tensor, int]:
 def _mul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check(a)
     _check(b)
-    if b.device != a.device:
+    if b.get_device() != a.get_device():
         raise ValueError(f"operands on {a.device} and {b.device}")
     shape = a.shape if a.shape == b.shape else torch.broadcast_shapes(a.shape, b.shape)
-    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    out = a.new_empty(shape)
     m = out.numel() // LIMBS
     if m:
         a, a_step = _operand(a, shape)
         b, b_step = _operand(b, shape)
         FE_MUL(a.data_ptr(), a_step, b.data_ptr(), b_step, out.data_ptr(), m,
-               LANES_PER_ELEMENT, *_build.stream_args(out))
+               *_build.stream_args(out))
     return out
 
 
@@ -231,7 +231,7 @@ def mul_scalar(a: torch.Tensor, k: int) -> torch.Tensor:
 FE_POW22523 = _build.Kernel(
     "fe_pow22523",
     "fe_pow22523",
-    [_build.P, _build.P, _build.I64, _build.I32, _build.I32, _build.P],
+    [_build.P, _build.P, _build.I64, _build.I32, _build.P],
     replaces="tendermint_tpu/crypto/tpu/pallas_field.py:281",
 )
 
@@ -241,12 +241,11 @@ def pow22523(z: torch.Tensor) -> torch.Tensor:
     decompression (classic ed25519 addition chain)."""
     if on_card(z):
         _check(z)
-        out = torch.empty(z.shape, dtype=torch.int32, device=z.device)
+        out = z.new_empty(z.shape)
         m = out.numel() // LIMBS
         if m:
             z, _ = _operand(z, z.shape)
-            FE_POW22523(z.data_ptr(), out.data_ptr(), m, LANES_PER_ELEMENT,
-                        *_build.stream_args(out))
+            FE_POW22523(z.data_ptr(), out.data_ptr(), m, *_build.stream_args(out))
         return out
     return _pow22523_plain(z)
 

@@ -10,7 +10,7 @@ Integer arithmetic: every comparison is exact (torch.equal). Shapes
 include ragged edges the kernels mask themselves (element counts that
 are not multiples of B1's and B2's 32 elements per block, chain counts
 that are not multiples of B3's four warps), no element at all, the
-all-511 worst case of the FP32 convolution, and operands the wrappers
+all-511 worst case of the FP32 convolution, limbs below zero, and operands the wrappers
 must copy (a transposed view, a misaligned view) or read in place (a
 broadcast constant).
 """
@@ -104,6 +104,21 @@ def test_worst_case_all_511(card, m):
     x = torch.full((m, 32), 511, dtype=torch.int32, device=card)
     assert torch.equal(F.mul(x, x), F._mul_plain(x, x))
     assert torch.equal(F.pow22523(x), F._pow22523_plain(x))
+
+
+@pytest.mark.parametrize("m", [5, 4099])
+def test_signed_limbs(card, m):
+    """Limbs below zero, as `sub` and `neg` leave them (the reference's
+    EIGHT_P is 0): the plain versions compute them exactly in int32, and
+    so must the kernels' FP32 convolution and signed carries."""
+    rng = np.random.default_rng(600 + m)
+    a = torch.from_numpy(rng.integers(-511, 512, (m, 32), dtype=np.int32)).to(card)
+    b = torch.from_numpy(rng.integers(-120, 300, (m, 32), dtype=np.int32)).to(card)
+    a[0], b[0] = -511, -511
+    a[1], b[1] = -511, 511
+    assert torch.equal(F.mul(a, b), F._mul_plain(a, b))
+    assert torch.equal(F.mul(a, a), F._mul_plain(a, a))
+    assert torch.equal(F.pow22523(a), F._pow22523_plain(a))
 
 
 def test_empty_batch_launches_nothing(card):
