@@ -10,8 +10,10 @@ failure exits non-zero, nothing is caught and carried past):
   1. build the CUDA kernels from csrc/ (nvcc, sm_90a), print the seconds
      and each kernel's register/spill report;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the shapes the main path gives it (B1 at 8,192, 64 and 1 elements),
-     with torch.equal (integer arithmetic: the tolerance is zero); time
+     the shapes the main path gives it (B1 at 8,192, 64 and 1 elements,
+     B3 at 8,192 and 512 chains of 15 steps, with an all-511 chain, a
+     y == x chain and signed limbs among them), with torch.equal
+     (integer arithmetic: the tolerance is zero); time
      each kernel alone (torch.profiler, three repeats), through its
      wrapper (CUDA events, three repeats), and its plain version;
   3. verify_commit_range over 54 commits of a 150-validator set (one
@@ -48,10 +50,10 @@ TAMPER_COMMIT, TAMPER_VAL = 20, 5
 SEED = 20261016
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
-# CUDA-core float32 rate (an FMA counted as two operations). B1 and B2
-# run their convolutions in FP32 FFMA at that rate; the carries, and B3's
-# int32 multiply-adds, issue at half of it, so for those the operation
-# bound below is optimistic by up to 2x.
+# CUDA-core float32 rate (an FMA counted as two operations). All three
+# kernels run their convolutions in FP32 FFMA at that rate; the int32
+# carries issue at half of it, so for those the operation bound below is
+# optimistic by up to 2x.
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 
@@ -64,7 +66,7 @@ CORE_OPS_PER_S = 67e12
 FE_CARRY_OPS = 4 * (3 * 32 + 1)
 FE_MUL_OPS = 2 * 32 * 32 + 2 * 32 + FE_CARRY_OPS
 FE_SQR_OPS = 2 * 528 + 64 + 2 * 32 + FE_CARRY_OPS
-FE_SUB_OPS = 2 * 32 + 2 * (3 * 32 + 1)  # + 8p, - b, two carry passes
+FE_SUB_OPS = 32 + 2 * (3 * 32 + 1)  # - b (the 8p added is zero), two carry passes
 FE_ADD_OPS = 32 + (3 * 32 + 1)
 # the pow22523 chain: 251 squarings + 11 multiplies (csrc/fe_pow22523.cu)
 POW22523_OPS = 251 * FE_SQR_OPS + 11 * FE_MUL_OPS
@@ -129,6 +131,25 @@ def check_kernels(dev) -> list[dict]:
     def limbs(*shape):
         return torch.randint(0, 512, shape + (32,), generator=gen, dtype=torch.int32).to(dev)
 
+    def scan_inputs(chains, steps):
+        """B3's operands: limbs in [0, 512), chain 0 at 511 in every limb
+        (where the true 8p and the reference's zero part ways), chain 1
+        with y == x, and the upper half of the chains in [-300, 300)."""
+        def signed(*shape):
+            return torch.randint(-300, 300, shape + (32,), generator=gen,
+                                 dtype=torch.int32).to(dev)
+
+        half = chains // 2
+        first = [torch.cat([limbs(half), signed(chains - half)]) for _ in range(4)]
+        rest = [torch.cat([limbs(steps, half), signed(steps, chains - half)], 1)
+                for _ in range(4)]
+        for t in first:
+            t[0] = 511
+        for t in rest:
+            t[:, 0] = 511
+        first[1][1] = first[0][1]
+        return curve.Point(*first), curve.CachedPoint(*rest)
+
     rows = []
 
     def record(kernel, m, run, plain, n_bytes, n_ops, reps):
@@ -185,15 +206,15 @@ def check_kernels(dev) -> list[dict]:
     record(F.FE_POW22523, 8447, lambda: F.pow22523(z), lambda: F._pow22523_plain(z),
            2 * LIMB_BYTES * 8447, POW22523_OPS * 8447, reps=20)
 
-    # B3 at the R-side MSM: 16 windows x g = 512 blocks = 8,192 chains of
-    # 15 cached additions
-    chains, steps = 16 * 512, msm._BLOCK - 1
-    first = curve.Point(*(limbs(chains) for _ in range(4)))
-    rest = curve.CachedPoint(*(limbs(steps, chains) for _ in range(4)))
-    record(msm.SCAN_BLOCKS, chains, lambda: msm.scan_blocks(first, rest),
-           lambda: msm._scan_blocks_plain(first, rest),
-           chains * LIMB_BYTES * 4 * (1 + steps + steps + 1),
-           chains * steps * ADD_CACHED_OPS, reps=20)
+    # B3 at the R-side MSM (16 windows x g = 512 blocks = 8,192 chains of
+    # 15 cached additions) and at the A side (512 chains)
+    steps = msm._BLOCK - 1
+    for chains, reps in ((16 * 512, 20), (512, 100)):
+        first, rest = scan_inputs(chains, steps)
+        record(msm.SCAN_BLOCKS, chains, lambda f=first, r=rest: msm.scan_blocks(f, r),
+               lambda f=first, r=rest: msm._scan_blocks_plain(f, r),
+               chains * LIMB_BYTES * 4 * (1 + steps + steps + 1),
+               chains * steps * ADD_CACHED_OPS, reps=reps)
     for k in _build.KERNELS.values():
         k.launches = 0
     return rows

@@ -1,18 +1,19 @@
 // GF(2^255 - 19) multiply and squaring for Hopper without warp shuffles.
 //
 // Used by fe_mul.cu (B1, replacing tendermint_tpu/crypto/tpu/pallas_field.py
-// _mul_limbs_first -> _mul_kernel -> _conv_mod) and fe_pow22523.cu (B2,
-// replacing pallas_field.py _pow22523_limbs_first). B3 (scan_blocks.cu)
-// still runs the warp-per-element multiply of fe25519.cuh.
+// _mul_limbs_first -> _mul_kernel -> _conv_mod), fe_pow22523.cu (B2,
+// replacing pallas_field.py _pow22523_limbs_first) and scan_blocks.cu (B3,
+// replacing pallas_field.py _scan_blocks_limbs_first), which runs the
+// batched forms at the end of this file.
 //
 // Mapping: a group of four lanes owns one field element, lane q of the
 // group holding limbs [8q, 8q + 8) in registers; a warp holds eight
 // elements. The lanes exchange through shared memory, never through
 // shuffles: each lane writes its 8 limbs (as floats) into the element's
 // operand row, __syncwarp(), and every lane reads the whole row back with
-// 16-byte loads. The carry of each of the four carry passes crosses one
-// lane boundary the same way, one word per pass. The warp-per-element
-// multiply it replaces issued 68 shuffles per multiply, and an SM
+// 16-byte loads. The carry of each carry pass crosses one lane boundary
+// the same way, one word per pass. The warp-per-element multiply it
+// replaced issued 68 shuffles per multiply, and an SM
 // delivers one warp-wide shuffle per clock against 64 int32 multiply-adds:
 // the shuffles, not the arithmetic, set its pace. (One thread per element
 // was built and timed too, with a squaring that uses the convolution's
@@ -75,33 +76,40 @@ struct Fe {  // this lane's 8 limbs of one field element
   int v[kOwn];
 };
 
-struct Group {
-  float* ra;        // shared operand row a (kRow words)
-  float* rb;        // shared operand row b
-  int* carry;       // shared: 4 passes x kLanes carry words
+// What a lane's arithmetic needs to know of its place in the group.
+struct Lane {
   int q;            // this lane owns limbs [8q, 8q + 8)
   unsigned w[kLanes];  // w[u], u >= 1: weight of rotated block u (see conv)
   unsigned bias;    // the accumulators' biases, weighted, to remove
   int wcarry;       // 38 on lane 0 (its carry-in wraps from limb 31)
 };
 
-// `base`: kGroupWords shared words, 16-byte aligned.
-__device__ __forceinline__ Group make_group(int* base, int q) {
-  Group g;
-  g.ra = reinterpret_cast<float*>(base);
-  g.rb = g.ra + kRow;
-  g.carry = base + 2 * kRow;
-  g.q = q;
+__device__ __forceinline__ Lane make_lane(int q) {
+  Lane l;
+  l.q = q;
   unsigned total = 1u + 38u;  // the two block-0 accumulators (conv)
-  g.w[0] = 38u;
+  l.w[0] = 38u;
 #pragma unroll
   for (int u = 1; u < kLanes; ++u) {
-    g.w[u] = (q + u < kLanes) ? 38u : 1u;
-    total += g.w[u];
+    l.w[u] = (q + u < kLanes) ? 38u : 1u;
+    total += l.w[u];
   }
-  g.bias = total * (unsigned)kBias;  // mod 2^32, like the sums it corrects
-  g.wcarry = q == 0 ? 38 : 1;
-  return g;
+  l.bias = total * (unsigned)kBias;  // mod 2^32, like the sums it corrects
+  l.wcarry = q == 0 ? 38 : 1;
+  return l;
+}
+
+// A lane with the shared scratch of one element's mul and sqr.
+struct Group : Lane {
+  float* ra;        // shared operand row a (kRow words)
+  float* rb;        // shared operand row b
+  int* carry;       // shared: 4 passes x kLanes carry words
+};
+
+// `base`: kGroupWords shared words, 16-byte aligned.
+__device__ __forceinline__ Group make_group(int* base, int q) {
+  float* rows = reinterpret_cast<float*>(base);
+  return Group{make_lane(q), rows, rows + kRow, base + 2 * kRow};
 }
 
 __device__ __forceinline__ void publish(float* row, const Fe& a, int q) {
@@ -123,7 +131,7 @@ __device__ __forceinline__ void publish(float* row, const Fe& a, int q) {
 // weight 38 while q + u < 4 and on weight 1 after. Each (j, block) has
 // its own accumulator of at most 8 products; the weights w[u] are
 // per-lane constants.
-__device__ __forceinline__ void conv(const Group& g, const float* row_a, const float* row_b,
+__device__ __forceinline__ void conv(const Lane& g, const float* row_a, const float* row_b,
                                      int (&c)[kOwn]) {
   float x[kLimbs], y[kLimbs];
 #pragma unroll
@@ -154,18 +162,23 @@ __device__ __forceinline__ void conv(const Group& g, const float* row_a, const f
   }
 }
 
-// The four carry passes (arithmetic shifts, as in the plain version); the
-// carry into limb 8q comes from the lane before (lane 3 for lane 0, times
-// 38) through the carry words.
+// One carry pass inside this lane's 8 limbs (arithmetic shifts, as in
+// the plain version): keep each limb's low byte and push the rest one
+// limb up. `cin`, already weighted, is the carry into limb 8q.
+__device__ __forceinline__ void carry_local(int (&c)[kOwn], int cin) {
+#pragma unroll
+  for (int j = kOwn - 1; j > 0; --j) c[j] = (c[j] & 0xFF) + (c[j - 1] >> 8);
+  c[0] = (c[0] & 0xFF) + cin;
+}
+
+// The four carry passes of a product; the carry into limb 8q comes from
+// the lane before (lane 3 for lane 0, times 38) through the carry words.
 __device__ __forceinline__ void carry(const Group& g, int (&c)[kOwn]) {
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
     g.carry[p * kLanes + g.q] = c[kOwn - 1] >> 8;
     __syncwarp();
-    int cin = g.carry[p * kLanes + ((g.q + kLanes - 1) & (kLanes - 1))] * g.wcarry;
-#pragma unroll
-    for (int j = kOwn - 1; j > 0; --j) c[j] = (c[j] & 0xFF) + (c[j - 1] >> 8);
-    c[0] = (c[0] & 0xFF) + cin;
+    carry_local(c, g.carry[p * kLanes + ((g.q + kLanes - 1) & (kLanes - 1))] * g.wcarry);
   }
 }
 
@@ -213,6 +226,78 @@ __device__ __forceinline__ void store(int* dst, const Fe& a, int q) {
     *reinterpret_cast<int4*>(dst + q * kOwn + 4 * m) =
         make_int4(a.v[4 * m], a.v[4 * m + 1], a.v[4 * m + 2], a.v[4 * m + 3]);
   }
+}
+
+// ---- batched operations (B3) ----------------------------------------------
+//
+// Independent operations of one group share their exchanges: a pass
+// publishes the top carries of up to four values with one 16-byte store
+// per lane, __syncwarp()s once and reads the lane before's with one
+// load; a batched multiply publishes all its operand rows before one
+// __syncwarp(). The passes alternate between two sets of carry words,
+// and each operation below runs an even number of them, starting on set
+// 0: a set is written again two passes after it was read, with a
+// __syncwarp() between, so no lane overwrites a word another has still
+// to read. Every lane of the warp calls them together.
+
+constexpr int kCarrySet = 4 * kLanes;  // words in one set: four per lane
+
+struct Carries {  // a group's two sets of carry words, 16-byte aligned
+  int* set[2];
+};
+
+// One carry pass over v[0..N), N <= 4, sharing one exchange.
+template <int N>
+__device__ __forceinline__ void carry_pass(const Lane& l, int* set, Fe* v) {
+  static_assert(N >= 1 && N <= 4, "four carry words per lane");
+  int top[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int n = 0; n < N; ++n) top[n] = v[n].v[kOwn - 1] >> 8;
+  *reinterpret_cast<int4*>(set + 4 * l.q) = make_int4(top[0], top[1], top[2], top[3]);
+  __syncwarp();
+  const int4 in = *reinterpret_cast<const int4*>(set + 4 * ((l.q + kLanes - 1) & (kLanes - 1)));
+  const int cin[4] = {in.x, in.y, in.z, in.w};
+#pragma unroll
+  for (int n = 0; n < N; ++n) carry_local(v[n].v, cin[n] * l.wcarry);
+}
+
+// out[n] = a[n] + b[n] with one carry pass (field.add) and
+// out[N + n] = a[n] - b[n] with two (field.sub, whose 8p is the
+// reference's zero), for n < N <= 2: two exchanges in all.
+template <int N>
+__device__ __forceinline__ void add_sub(const Lane& l, const Carries& cw, const Fe* a,
+                                        const Fe* b, Fe* out) {
+  static_assert(N >= 1 && N <= 2, "2N values share the first pass");
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int k = 0; k < kOwn; ++k) {
+      out[n].v[k] = a[n].v[k] + b[n].v[k];
+      out[N + n].v[k] = a[n].v[k] - b[n].v[k];
+    }
+  }
+  carry_pass<2 * N>(l, cw.set[0], out);
+  carry_pass<N>(l, cw.set[1], out + N);
+}
+
+// out[n] = row_a[n] * row_b[n] for n < N <= 4, from operand rows the
+// caller has published (floats, as publish() writes them) and made
+// visible with one __syncwarp(): N convolutions, then the four carry
+// passes of all N products, four exchanges in all.
+template <int N>
+__device__ __forceinline__ void mul_rows(const Lane& l, const Carries& cw,
+                                         const float* const (&row_a)[N],
+                                         const float* const (&row_b)[N], Fe* out) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) conv(l, row_a[n], row_b[n], out[n].v);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) carry_pass<N>(l, cw.set[p & 1], out);
+}
+
+// This lane's 8 limbs of `row` (32 ints in shared memory) rewritten in
+// place as the floats conv reads.
+__device__ __forceinline__ void to_float_row(int* row, int q) {
+  publish(reinterpret_cast<float*>(row), load(row, q), q);
 }
 
 }  // namespace feg

@@ -22,13 +22,6 @@ constexpr int kElems = 32;                 // elements per block
 constexpr int kThreads = kElems * feg::kLanes;
 constexpr int kChunks = feg::kLimbs / 4;   // 16-byte chunks per element
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  int n = valid ? 16 : 0;  // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n)
-               : "memory");
-}
-
 __global__ void __launch_bounds__(kThreads)
 fe_mul_kernel(const int* __restrict__ a, int a_step, const int* __restrict__ b, int b_step,
               int* __restrict__ out, long long m) {
@@ -44,7 +37,8 @@ fe_mul_kernel(const int* __restrict__ a, int a_step, const int* __restrict__ b, 
     cp_async16(&ta[el * feg::kRow + 4 * part], a + row * a_step + 4 * part, valid);
     cp_async16(&tb[el * feg::kRow + 4 * part], b + row * b_step + 4 * part, valid);
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
   const int el = threadIdx.x / feg::kLanes, q = threadIdx.x % feg::kLanes;

@@ -1,60 +1,179 @@
 // B3: inclusive prefix sums along chains of cached point additions, the
 // within-block stage of the MSM's bucket scan. Replaces
 // tendermint_tpu/crypto/tpu/pallas_field.py _scan_blocks_limbs_first
-// (_scan_block_kernel). One warp walks one chain: it holds the running
-// point in four registers per lane, reads each step's cached operand
-// (coalesced, 4 x 128 bytes) and writes each prefix once.
+// (_scan_block_kernel).
 //
 // first:  4 x (C, 32)            first point of each chain
 // cached: 4 x (S, C, 32)         cached operands for steps 1..S
 // out:    4 x (C, S + 1, 32)     prefixes; prefix 0 is the first point
 //
-// C need not be a multiple of anything: a warp past the end returns.
-#include "fe25519.cuh"
+// Arithmetic: the plain version's (msm._add_cached_plain), which is the
+// reference's lax.scan of curve.add_cached. Its `sub` adds the
+// reference's EIGHT_P, which is zero (int_to_limbs reduces p to 0), and
+// runs two carry passes; `add` runs one. The Pallas kernel adds the true
+// 8p ([1896, 2040 x 30, 1016]): equal mod p, other limbs. So limbs go
+// below zero, and fe25519_group.cuh's multiply takes them. Bounds, by
+// interval arithmetic over the plain version's passes (arithmetic
+// shifts), for limbs in [-511, 511]: a + b after its pass lies in
+// [-152, 369], a - b after its two in [-38, 293], and a product after its
+// four in [-38, 293]. So with the first points and the cached operands
+// within |limb| <= 511, every operand of every multiply of a chain is
+// too: the range in which the FP32 convolution is exact.
+//
+// Mapping: fe25519_group.cuh's. Four lanes own one chain, lane q holding
+// limbs [8q, 8q + 8) of the running point's four coordinates in
+// registers; a warp walks eight chains, and a block is that one warp, so
+// the A-side call's 512 chains still spread over 64 SMs.
+//
+// A step (curve.add_cached) is two rounds of four independent
+// multiplies, each after a round of adds and subs, and every round is
+// batched: a multiply round publishes its eight operands, __syncwarp()s
+// once, runs four convolutions and then the carry passes of all four
+// products with one exchange per pass. A step costs 14 __syncwarp()s:
+// 2 (y - x, y + x), 1 + 4 (a, b, c, d), 2 (e, f, g, h), 1 + 4 (the new
+// x, y, z, t); one per operation would cost 49.
+//
+// What bounds it on an H100: bytes, barely (a chain moves 16 KB for
+// ~316k operations; see chip_smoke.py). So the copies overlap the
+// arithmetic: while a step computes, 16-byte cp.async copies bring the
+// next step's cached rows of the warp's eight chains (4 x 1 KB,
+// contiguous in memory) into the other half of a double buffer in
+// shared memory, where each lane turns its own limbs of them into floats
+// in place, the operand rows of the first multiply round. The prefixes
+// go out with 16-byte stores straight from registers.
+//
+// C need not be a multiple of anything: the lanes of a chain past the
+// end compute on a stand-in (chain 0's first point, zero-filled cached
+// rows) and store nothing, since every lane must reach every
+// __syncwarp().
+#include "fe25519_group.cuh"
 #include "launch.cuh"
 
-__global__ void __launch_bounds__(128)
+namespace {
+
+constexpr int kChains = 8;                       // chains per warp = per block
+constexpr int kThreads = kChains * feg::kLanes;  // one warp
+constexpr int kCoords = 4;
+constexpr int kChunks = feg::kLimbs / 4;         // 16-byte chunks per row
+
+// The warp's shared memory. Rows of one kind for the eight chains sit
+// kRow words apart, so the lanes of a 16-byte access meet on no bank.
+struct Smem {
+  int cached[2][kCoords][kChains][feg::kRow];  // double buffer: one step's cached rows
+  float ops[kCoords][kChains][feg::kRow];      // a round's published operands
+  int carry[2][kChains][feg::kCarrySet];       // the two sets of carry words
+};
+
+// Start copying step j's cached rows of chains [e0, e0 + 8) into buffer
+// b: per coordinate 1 KB, 64 chunks of 16 bytes, two per lane.
+__device__ __forceinline__ void prefetch(Smem& s, int b, const int* const (&cached)[kCoords],
+                                         long long chains, long long e0, int j, int lane) {
+#pragma unroll
+  for (int k = 0; k < kCoords; ++k) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = lane + kThreads * h, chain = i / kChunks, part = i % kChunks;
+      const bool valid = e0 + chain < chains;
+      const long long row = (long long)j * chains + (valid ? e0 + chain : 0);
+      cp_async16(&s.cached[b][k][chain][4 * part], cached[k] + row * feg::kLimbs + 4 * part,
+                 valid);
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kThreads)
 scan_blocks_kernel(const int* __restrict__ fx, const int* __restrict__ fy,
                    const int* __restrict__ fz, const int* __restrict__ ft,
                    const int* __restrict__ ymx, const int* __restrict__ ypx,
                    const int* __restrict__ t2d, const int* __restrict__ z2,
-                   int* __restrict__ ox, int* __restrict__ oy,
-                   int* __restrict__ oz, int* __restrict__ ot,
-                   long long chains, int steps) {
-  long long e = warp_element();
-  if (e >= chains) return;
-  int lane = threadIdx.x & 31;
-  long long in = e * 32 + lane;
-  int x = fx[in], y = fy[in], z = fz[in], t = ft[in];
-  long long o = e * (steps + 1) * 32 + lane;
-  ox[o] = x;
-  oy[o] = y;
-  oz[o] = z;
-  ot[o] = t;
+                   int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz,
+                   int* __restrict__ ot, long long chains, int steps) {
+  __shared__ __align__(16) Smem s;
+  const int lane = threadIdx.x, c = lane / feg::kLanes, q = lane % feg::kLanes;
+  const long long e0 = (long long)blockIdx.x * kChains, e = e0 + c;
+  const bool live = e < chains;
+  const int* const first[kCoords] = {fx, fy, fz, ft};
+  const int* const cached[kCoords] = {ymx, ypx, t2d, z2};
+  int* const out[kCoords] = {ox, oy, oz, ot};
+  const feg::Lane l = feg::make_lane(q);
+  const feg::Carries cw = {{s.carry[0][c], s.carry[1][c]}};
+  const float* const ops[kCoords] = {s.ops[0][c], s.ops[1][c], s.ops[2][c], s.ops[3][c]};
+
+  if (steps > 0) prefetch(s, 0, cached, chains, e0, 0, lane);
+
+  feg::Fe p[kCoords];  // the running point x, y, z, t
+  long long o = (live ? e : 0) * (steps + 1) * (long long)feg::kLimbs;
+#pragma unroll
+  for (int k = 0; k < kCoords; ++k) {
+    p[k] = feg::load(first[k] + (live ? e : 0) * feg::kLimbs, q);
+    if (live) feg::store(out[k] + o, p[k], q);
+  }
+
+#pragma unroll 1
   for (int j = 0; j < steps; ++j) {
-    long long c = ((long long)j * chains + e) * 32 + lane;
-    fe::add_cached(x, y, z, t, ymx[c], ypx[c], t2d[c], z2[c], lane);
-    o += 32;
-    ox[o] = x;
-    oy[o] = y;
-    oz[o] = z;
-    ot[o] = t;
+    const int b = j & 1;
+    if (j + 1 < steps) {
+      prefetch(s, b ^ 1, cached, chains, e0, j + 1, lane);
+    } else {
+      cp_async_commit();  // an empty group, so that the wait below waits for step j
+    }
+    cp_async_wait<1>();  // this lane's copies of step j have landed
+
+    // y + x and y - x; the first pass's __syncwarp() also makes every
+    // lane's copies of step j visible to the warp
+    feg::Fe yx[2];
+    feg::add_sub<1>(l, cw, &p[1], &p[0], yx);
+#pragma unroll
+    for (int k = 0; k < kCoords; ++k) feg::to_float_row(s.cached[b][k][c], q);
+    feg::publish(s.ops[0][c], yx[1], q);  // y - x
+    feg::publish(s.ops[1][c], yx[0], q);  // y + x
+    feg::publish(s.ops[2][c], p[3], q);   // t
+    feg::publish(s.ops[3][c], p[2], q);   // z
+    __syncwarp();
+    const float* const rows[kCoords] = {
+        reinterpret_cast<const float*>(s.cached[b][0][c]),
+        reinterpret_cast<const float*>(s.cached[b][1][c]),
+        reinterpret_cast<const float*>(s.cached[b][2][c]),
+        reinterpret_cast<const float*>(s.cached[b][3][c])};
+    feg::Fe m[4];  // a, b, c, d
+    feg::mul_rows<4>(l, cw, ops, rows, m);
+
+    // h = b + a, g = d + c; e = b - a, f = d - c
+    const feg::Fe hi[2] = {m[1], m[3]}, lo[2] = {m[0], m[2]};
+    feg::Fe hgef[4];
+    feg::add_sub<2>(l, cw, hi, lo, hgef);
+    feg::publish(s.ops[0][c], hgef[2], q);  // e
+    feg::publish(s.ops[1][c], hgef[3], q);  // f
+    feg::publish(s.ops[2][c], hgef[1], q);  // g
+    feg::publish(s.ops[3][c], hgef[0], q);  // h
+    __syncwarp();
+    // x = e f, y = g h, z = f g, t = e h
+    const float* const ra[4] = {ops[0], ops[2], ops[1], ops[0]};
+    const float* const rb[4] = {ops[1], ops[3], ops[2], ops[3]};
+    feg::mul_rows<4>(l, cw, ra, rb, p);
+
+    o += feg::kLimbs;
+#pragma unroll
+    for (int k = 0; k < kCoords; ++k) {
+      if (live) feg::store(out[k] + o, p[k], q);
+    }
   }
 }
 
-extern "C" int scan_blocks_launch(const void* fx, const void* fy,
-                                  const void* fz, const void* ft,
-                                  const void* ymx, const void* ypx,
-                                  const void* t2d, const void* z2, void* ox,
-                                  void* oy, void* oz, void* ot,
-                                  long long chains, int steps, int device,
+}  // namespace
+
+extern "C" int scan_blocks_launch(const void* fx, const void* fy, const void* fz,
+                                  const void* ft, const void* ymx, const void* ypx,
+                                  const void* t2d, const void* z2, void* ox, void* oy, void* oz,
+                                  void* ot, long long chains, int steps, int device,
                                   void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  scan_blocks_kernel<<<blocks_for(chains), 32 * kWarpsPerBlock, 0,
-                       (cudaStream_t)stream>>>(
-      (const int*)fx, (const int*)fy, (const int*)fz, (const int*)ft,
-      (const int*)ymx, (const int*)ypx, (const int*)t2d, (const int*)z2,
-      (int*)ox, (int*)oy, (int*)oz, (int*)ot, chains, steps);
+  unsigned blocks = (unsigned)((chains + kChains - 1) / kChains);
+  scan_blocks_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)fx, (const int*)fy, (const int*)fz, (const int*)ft, (const int*)ymx,
+      (const int*)ypx, (const int*)t2d, (const int*)z2, (int*)ox, (int*)oy, (int*)oz, (int*)ot,
+      chains, steps);
   return (int)cudaGetLastError();
 }

@@ -18,10 +18,10 @@ Kernels in this module (CUDA C++, csrc/):
   B2 `pow22523` → csrc/fe_pow22523.cu, replacing
      pallas_field._pow22523_limbs_first.
 
-Both use the shuffle-free multiply of csrc/fe25519_group.cuh: four lanes
-own one field element, eight limbs each in registers, and exchange
-operands and carries through shared memory, never through warp
-shuffles; the convolution runs in exact FP32 FFMA (every accumulator
+Both use the shuffle-free multiply of csrc/fe25519_group.cuh (as does
+B3, msm.scan_blocks, with its batched forms): four lanes own one field
+element, eight limbs each in registers, and exchange operands and
+carries through shared memory, never through warp shuffles; the convolution runs in exact FP32 FFMA (every accumulator
 sums at most 8 products, below 2^22) and the fold and the four carry
 passes in int32, so the limbs are the plain version's.
 What bounds them on an H100: a lone multiply moves 384 bytes for ~2,500

@@ -23,15 +23,20 @@ Kernel in this module (CUDA C++, csrc/scan_blocks.cu):
 
   B3 `scan_blocks` replaces pallas_field._scan_blocks_limbs_first: the
   within-block inclusive prefix sums of `_boundary_prefixes`, 15 cached
-  additions (120 field multiplies) per 16-point block, one warp per block
-  with the running point in registers. On an H100 it sits at the ridge
-  between bytes and int32 operations: a chain moves 16 KB (its first
-  point and 15 cached operands in, its 16 prefixes out) for ~317k int32
-  operations, ~19 per byte. The design reads and writes each of those
-  once and keeps every intermediate in registers. Unlike the TPU wrapper
-  it needs no tile-multiple gate: the
-  kernel masks its own ragged edge, so every blocked-path call on a CUDA
-  tensor goes through it, the A-side MSM's small windows included.
+  additions (120 field multiplies) per 16-point block. It runs on the
+  shuffle-free multiply of csrc/fe25519_group.cuh: four lanes own one
+  chain, the running point in registers, and a warp walks eight chains;
+  each step's two rounds of four independent multiplies share their
+  barriers, and the next step's cached operands are copied into shared
+  memory (cp.async) while the current one computes. On an H100 it sits
+  at the ridge between bytes and operations: a chain moves 16 KB (its
+  first point and 15 cached operands in, its 16 prefixes out) for ~316k
+  operations, ~19 per byte. Its arithmetic is the plain version's,
+  limb for limb: `sub` adds the reference's EIGHT_P (zero), as the
+  reference's lax.scan does, not the Pallas kernel's true 8p. Unlike the
+  TPU wrapper it needs no tile-multiple gate: the kernel masks its own
+  ragged edge, so every blocked-path call on a CUDA tensor goes through
+  it, the A-side MSM's small windows included.
 """
 
 from __future__ import annotations
@@ -70,8 +75,7 @@ def scan_blocks(first: Point, rest: CachedPoint) -> Point:
 
 
 def _scan_blocks_cuda(first: Point, rest: CachedPoint) -> Point:
-    chains, steps = first.x.shape[0], rest.ymx.shape[0]
-    ins = [F._flat(c) for c in first] + [F._flat(c) for c in rest]
+    ins, chains, steps = _scan_operands(first, rest)
     outs = [
         torch.empty((chains, steps + 1, F.LIMBS), dtype=torch.int32, device=first.x.device)
         for _ in range(4)
@@ -84,6 +88,26 @@ def _scan_blocks_cuda(first: Point, rest: CachedPoint) -> Point:
             *_build.stream_args(first.x),
         )
     return Point(*outs)
+
+
+def _scan_operands(first: Point, rest: CachedPoint) -> tuple[list[torch.Tensor], int, int]:
+    """B3's eight inputs as its kernel reads them (16-byte copies): each
+    the tensor itself when it is contiguous and 16-byte aligned, else a
+    contiguous copy. Raises unless all eight are int32 limbs on one
+    device, `first` (C, 32) and `rest` (S, C, 32). Returns (inputs, C, S)."""
+    for t in (*first, *rest):
+        F._check(t)
+    chains, steps = first.x.shape[0], rest.ymx.shape[0]
+    if any(t.shape != (chains, F.LIMBS) for t in first) or any(
+        t.shape != (steps, chains, F.LIMBS) for t in rest
+    ):
+        raise ValueError(
+            "scan_blocks wants 4 x (C, 32) first points and 4 x (S, C, 32) cached "
+            f"operands, got {[tuple(t.shape) for t in (*first, *rest)]}"
+        )
+    if any(t.device != first.x.device for t in (*first, *rest)):
+        raise ValueError(f"scan_blocks operands on {[str(t.device) for t in (*first, *rest)]}")
+    return [F._operand(t, t.shape)[0] for t in (*first, *rest)], chains, steps
 
 
 def _scan_blocks_plain(first: Point, rest: CachedPoint) -> Point:

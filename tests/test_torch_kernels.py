@@ -9,10 +9,11 @@ tests/conftest.py imports jax, which these tests do not need):
 Integer arithmetic: every comparison is exact (torch.equal). Shapes
 include ragged edges the kernels mask themselves (element counts that
 are not multiples of B1's and B2's 32 elements per block, chain counts
-that are not multiples of B3's four warps), no element at all, the
-all-511 worst case of the FP32 convolution, limbs below zero, and operands the wrappers
-must copy (a transposed view, a misaligned view) or read in place (a
-broadcast constant).
+that are not multiples of B3's eight chains per block), no element at
+all, the all-511 worst case of the FP32 convolution (and, for B3, of the
+8p that the reference's arithmetic adds as zero), limbs below zero, and
+operands the wrappers must copy (a transposed view, a misaligned view)
+or read in place (a broadcast constant).
 """
 
 import numpy as np
@@ -66,11 +67,34 @@ def test_fe_pow22523_kernel_equals_plain(card, m):
     assert torch.equal(got, F._pow22523_plain(z))
 
 
-@pytest.mark.parametrize("chains,steps", [(1, 15), (5, 15), (130, 15), (6, 3)])
-def test_scan_blocks_kernel_equals_plain(card, chains, steps):
+def _scan_inputs(rng, chains, steps, kind, device):
+    """B3's operands with limbs in [0, 512) ("random"), [-300, 300)
+    ("signed") or all 511 ("all511"); chain 1, where there is one, has
+    y == x."""
+    lo, hi = {"random": (0, 512), "signed": (-300, 300), "all511": (511, 512)}[kind]
+
+    def draw(*shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape + (32,), dtype=np.int32)).to(device)
+
+    first = C.Point(*(draw(chains) for _ in range(4)))
+    if chains > 1:
+        first.y[1] = first.x[1]
+    return first, C.CachedPoint(*(draw(steps, chains) for _ in range(4)))
+
+
+@pytest.mark.parametrize(
+    "chains,steps,kind",
+    [
+        (1, 15, "random"), (5, 15, "random"), (130, 15, "random"), (6, 3, "random"),
+        (7, 15, "random"), (9, 15, "signed"), (513, 15, "signed"), (4, 0, "random"),
+        (512, 15, "random"), (512, 15, "signed"), (9, 15, "all511"),
+    ],
+)
+def test_scan_blocks_kernel_equals_plain(card, chains, steps, kind):
+    """Chain counts around B3's eight chains per block (1, 7, 9, 513),
+    the A side's 512, no step at all; one launch per call."""
     rng = np.random.default_rng(200 + chains)
-    first = C.Point(*(_limbs(rng, chains, device=card) for _ in range(4)))
-    rest = C.CachedPoint(*(_limbs(rng, steps, chains, device=card) for _ in range(4)))
+    first, rest = _scan_inputs(rng, chains, steps, kind, card)
     before = M.SCAN_BLOCKS.launches
     got = M.scan_blocks(first, rest)
     assert M.SCAN_BLOCKS.launches == before + 1
@@ -100,10 +124,16 @@ def test_kernels_refuse_wrong_dtype(card):
 def test_worst_case_all_511(card, m):
     """Every limb 511 in every row: the largest convolution coefficients
     (511^2 * 32 < 2^23), where the FP32 sums are closest to inexact, for
-    the product (B1) and for the squarings that open B2's chain."""
+    the product (B1) and for the squarings that open B2's chain; and m
+    chains of 15 steps of B3, where a sub that adds the true 8p (as the
+    Pallas kernel does) leaves other limbs than the plain version's."""
     x = torch.full((m, 32), 511, dtype=torch.int32, device=card)
     assert torch.equal(F.mul(x, x), F._mul_plain(x, x))
     assert torch.equal(F.pow22523(x), F._pow22523_plain(x))
+    first = C.Point(x, x, x, x)
+    rest = C.CachedPoint(*(x.expand(15, m, 32) for _ in range(4)))
+    for g, w in zip(M.scan_blocks(first, rest), M._scan_blocks_plain(first, rest)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("m", [5, 4099])
@@ -119,6 +149,11 @@ def test_signed_limbs(card, m):
     assert torch.equal(F.mul(a, b), F._mul_plain(a, b))
     assert torch.equal(F.mul(a, a), F._mul_plain(a, a))
     assert torch.equal(F.pow22523(a), F._pow22523_plain(a))
+    # B3 on chains of such limbs (|limb| <= 511 in, as for every multiply)
+    first = C.Point(a, b, b.flip(0), a.flip(0))
+    rest = C.CachedPoint(*(torch.stack([a.roll(k + j, 0) for j in range(15)]) for k in range(4)))
+    for g, w in zip(M.scan_blocks(first, rest), M._scan_blocks_plain(first, rest)):
+        assert torch.equal(g, w)
 
 
 def test_empty_batch_launches_nothing(card):
@@ -164,6 +199,31 @@ def test_broadcast_shapes(card):
     c = _limbs(rng, 9, device=card)
     assert torch.equal(F.mul(row, c), F._mul_plain(row, c))
     assert torch.equal(F.mul(c, row), F._mul_plain(c, row))
+
+
+def test_scan_blocks_wrapper_copies_or_refuses(card):
+    """B3 reads its operands with 16-byte copies: a transposed view and
+    a misaligned view are copied first (and read right); an operand on
+    another device, or of another shape, is refused, launching nothing."""
+    rng = np.random.default_rng(700)
+    chains, steps = 9, 15
+    first, rest = _scan_inputs(rng, chains, steps, "signed", card)
+    want = M._scan_blocks_plain(first, rest)
+    wide = first.x.t().contiguous().t()  # (9, 32), not contiguous
+    flat = torch.cat([first.z.new_zeros(1), first.z.reshape(-1)])
+    odd = flat[1:].view(chains, 32)  # contiguous, 4 bytes past 16-byte alignment
+    assert not wide.is_contiguous() and odd.data_ptr() % 16 != 0
+    got = M.scan_blocks(first._replace(x=wide, z=odd), rest)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    before = M.SCAN_BLOCKS.launches
+    with pytest.raises(ValueError):
+        M.scan_blocks(first, rest._replace(t2d=rest.t2d.cpu()))
+    with pytest.raises(ValueError):
+        M.scan_blocks(first, rest._replace(z2=rest.z2[:, :-1]))
+    with pytest.raises(ValueError):
+        M.scan_blocks(first._replace(t=first.t.to(torch.int64)), rest)
+    assert M.SCAN_BLOCKS.launches == before
 
 
 def test_msm_on_card_is_limb_identical_to_cpu(card):

@@ -15,6 +15,7 @@ from tendermint_tpu.crypto.tpu import curve as JC
 from tendermint_tpu.crypto.tpu import field as JF
 from tendermint_tpu.crypto.tpu import msm as JM
 from tendermint_tpu_torch import convert
+from tendermint_tpu_torch.crypto.cuda import curve as C
 from tendermint_tpu_torch.crypto.cuda import field as F
 from tendermint_tpu_torch.crypto.cuda import msm as M
 
@@ -83,3 +84,55 @@ def test_window_sums_blocked_vs_scan_path():
         a = [F.limbs_to_int(c[w]) for c in blocked[:3]]
         b = [F.limbs_to_int(c[w]) for c in scanned[:3]]
         assert _affine(*a) == _affine(*b)
+
+
+def test_scan_blocks_plain_vs_reference_scan_at_extreme_limbs():
+    """B3's plain version, limb for limb, against the reference's lax.scan
+    of curve.add_cached (msm.py:146-152), whose `sub` adds EIGHT_P = 0 —
+    the arithmetic the CUDA kernel must match — on chains where adding
+    the true 8p (the Pallas kernel's `_eight_p`) would part ways: one at
+    511 in every limb, one with negative limbs, one with y == x."""
+    rng = np.random.default_rng(31)
+    chains, steps = 4, M._BLOCK - 1
+    first = [rng.integers(0, 512, (chains, 32), dtype=np.int32) for _ in range(4)]
+    rest = [rng.integers(0, 512, (steps, chains, 32), dtype=np.int32) for _ in range(4)]
+    for c in first:
+        c[0] = 511
+        c[1] = rng.integers(-300, 0, 32)
+    for c in rest:
+        c[:, 0] = 511
+        c[:, 1] = rng.integers(-300, 0, (steps, 32))
+    first[1][3] = first[0][3]  # y == x
+
+    def step(acc, nxt):
+        acc = JC.add_cached(acc, nxt)
+        return acc, acc
+
+    _, tail = jax.jit(lambda f, r: jax.lax.scan(step, f, r))(
+        JC.Point(*map(jnp.asarray, first)), JC.CachedPoint(*map(jnp.asarray, rest))
+    )
+    got = M._scan_blocks_plain(
+        C.Point(*map(torch.from_numpy, first)), C.CachedPoint(*map(torch.from_numpy, rest))
+    )
+    for f, t, g in zip(first, tail, got):
+        want = np.concatenate([f[:, None], np.moveaxis(np.asarray(t), 0, 1)], 1)
+        assert np.array_equal(g.numpy(), want)
+    assert (got.x.numpy() < 0).any()  # the signed limbs the kernel must carry
+
+
+@pytest.mark.parametrize("bad", ["steps", "chains", "device"])
+def test_scan_operands_refuses_mismatched_inputs(bad):
+    """B3's wrapper checks all eight operands before its kernel reads
+    them: one shape of chains and steps, and one device."""
+    first = C.Point(*(torch.zeros((6, 32), dtype=torch.int32) for _ in range(4)))
+    rest = C.CachedPoint(*(torch.zeros((3, 6, 32), dtype=torch.int32) for _ in range(4)))
+    ins, chains, steps = M._scan_operands(first, rest)
+    assert (chains, steps, len(ins)) == (6, 3, 8)
+    if bad == "steps":
+        rest = rest._replace(ypx=rest.ypx[:2])
+    elif bad == "chains":
+        first = first._replace(z=first.z[:5])
+    else:
+        rest = rest._replace(t2d=rest.t2d.to("meta"))
+    with pytest.raises(ValueError):
+        M._scan_operands(first, rest)
