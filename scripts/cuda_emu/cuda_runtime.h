@@ -1,0 +1,62 @@
+// Stand-in for the CUDA runtime header, so that g++ compiles the kernels of
+// tendermint_tpu_torch/crypto/cuda/csrc/ for the CPU (see run.py): a block's
+// threads are std::threads, std::barriers stand in for __syncwarp and
+// __syncthreads, and shared memory is function-static, blocks running one
+// after another.
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstring>
+#include <cstdint>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__ __restrict
+#define __align__(n) __attribute__((aligned(n)))
+#define __shared__ static
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+constexpr int cudaSuccess = 0;
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaSetDevice(int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+struct dim3 { unsigned x = 0, y = 0, z = 0; };
+inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local std::barrier<>* emu_warp_bar;
+inline thread_local std::barrier<>* emu_block_bar;
+inline void __syncwarp() { emu_warp_bar->arrive_and_wait(); }
+inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
+struct alignas(8) int2 { int x, y; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+inline float __int_as_float(int v) { float f; std::memcpy(&f, &v, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned v; std::memcpy(&v, &f, 4); return v; }
+inline int __float_as_int(float f) { int v; std::memcpy(&v, &f, 4); return v; }
+
+inline void emu_launch(unsigned blocks, unsigned threads, int, void*, std::function<void()> body) {
+  for (unsigned b = 0; b < blocks; ++b) {
+    std::barrier<> block_bar(threads);
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+    for (unsigned w = 0; w < (threads + 31) / 32; ++w)
+      warp_bars.emplace_back(new std::barrier<>(std::min(32u, threads - 32 * w)));
+    std::vector<std::thread> ts;
+    for (unsigned t = 0; t < threads; ++t) {
+      ts.emplace_back([&, t, b] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        emu_warp_bar = warp_bars[t / 32].get();
+        emu_block_bar = &block_bar;
+        body();
+      });
+    }
+    for (auto& t : ts) t.join();
+  }
+}

@@ -3,8 +3,8 @@
 // Used by fe_mul.cu (B1, replacing tendermint_tpu/crypto/tpu/pallas_field.py
 // _mul_limbs_first -> _mul_kernel -> _conv_mod), fe_pow22523.cu (B2,
 // replacing pallas_field.py _pow22523_limbs_first) and scan_blocks.cu (B3,
-// replacing pallas_field.py _scan_blocks_limbs_first), which runs the
-// batched forms at the end of this file.
+// replacing pallas_field.py _scan_blocks_limbs_first), which spreads the
+// four multiplies of each round of a point addition over four groups.
 //
 // Mapping: a group of four lanes owns one field element, lane q of the
 // group holding limbs [8q, 8q + 8) in registers; a warp holds eight
@@ -57,8 +57,9 @@ constexpr int kOwn = kLimbs / kLanes;   // limbs per lane
 // 36 = 4 (mod 32) puts neighbouring rows on different banks.
 constexpr int kRow = 36;
 // Shared words per element: two operand rows and one carry word per lane
-// per pass.
-constexpr int kGroupWords = 2 * kRow + 4 * kLanes;
+// per pass (kCarryWords).
+constexpr int kCarryWords = 4 * kLanes;
+constexpr int kGroupWords = 2 * kRow + kCarryWords;
 constexpr int kBias = 0x4B400000;       // bit pattern of 1.5 * 2^23 as a float
 constexpr float kBiasF = 12582912.0f;   // 1.5 * 2^23
 
@@ -79,7 +80,7 @@ struct Fe {  // this lane's 8 limbs of one field element
 // What a lane's arithmetic needs to know of its place in the group.
 struct Lane {
   int q;            // this lane owns limbs [8q, 8q + 8)
-  unsigned w[kLanes];  // w[u], u >= 1: weight of rotated block u (see conv)
+  unsigned w[kLanes];  // w[u]: weight of rotated block u (w[0]: block 0 above t = j; see conv)
   unsigned bias;    // the accumulators' biases, weighted, to remove
   int wcarry;       // 38 on lane 0 (its carry-in wraps from limb 31)
 };
@@ -103,7 +104,7 @@ __device__ __forceinline__ Lane make_lane(int q) {
 struct Group : Lane {
   float* ra;        // shared operand row a (kRow words)
   float* rb;        // shared operand row b
-  int* carry;       // shared: 4 passes x kLanes carry words
+  int* carry;       // shared: the carry words, 4 passes x kLanes
 };
 
 // `base`: kGroupWords shared words, 16-byte aligned.
@@ -130,7 +131,9 @@ __device__ __forceinline__ void publish(float* row, const Fe& a, int q) {
 // that is t > j, and a later block u (t in [8u, 8u + 8)) lands whole on
 // weight 38 while q + u < 4 and on weight 1 after. Each (j, block) has
 // its own accumulator of at most 8 products; the weights w[u] are
-// per-lane constants.
+// per-lane constants. The loop runs over t outside and j inside, so
+// consecutive FFMAs feed eight different accumulators and none waits on
+// the one before: a lone warp issues them back to back.
 __device__ __forceinline__ void conv(const Lane& g, const float* row_a, const float* row_b,
                                      int (&c)[kOwn]) {
   float x[kLimbs], y[kLimbs];
@@ -141,23 +144,32 @@ __device__ __forceinline__ void conv(const Lane& g, const float* row_a, const fl
     x[4 * m] = va.x, x[4 * m + 1] = va.y, x[4 * m + 2] = va.z, x[4 * m + 3] = va.w;
     y[4 * m] = vb.x, y[4 * m + 1] = vb.y, y[4 * m + 2] = vb.z, y[4 * m + 3] = vb.w;
   }
+  // lo[j]: block 0 with t <= j (weight 1); acc[0][j]: block 0 with t > j
+  // (weight 38 = w[0]); acc[u][j]: block u (weight w[u])
+  float lo[kOwn], acc[kLanes][kOwn];
 #pragma unroll
   for (int j = 0; j < kOwn; ++j) {
-    float lo = kBiasF, hi = kBiasF;
+    lo[j] = kBiasF;
 #pragma unroll
-    for (int t = 0; t <= j; ++t) lo = fmaf(x[t], y[j - t], lo);
+    for (int u = 0; u < kLanes; ++u) acc[u][j] = kBiasF;
+  }
 #pragma unroll
-    for (int t = j + 1; t < kOwn; ++t) hi = fmaf(x[t], y[(j - t) & (kLimbs - 1)], hi);
-    unsigned s = from_acc(lo) + 38u * from_acc(hi);
+  for (int t = 0; t < kLimbs; ++t) {
 #pragma unroll
-    for (int u = 1; u < kLanes; ++u) {
-      float acc = kBiasF;
-#pragma unroll
-      for (int t = u * kOwn; t < u * kOwn + kOwn; ++t) {
-        acc = fmaf(x[t], y[(j - t) & (kLimbs - 1)], acc);
+    for (int j = 0; j < kOwn; ++j) {
+      const float yv = y[(j - t) & (kLimbs - 1)];
+      if (t <= j) {
+        lo[j] = fmaf(x[t], yv, lo[j]);
+      } else {
+        acc[t / kOwn][j] = fmaf(x[t], yv, acc[t / kOwn][j]);
       }
-      s += g.w[u] * from_acc(acc);
     }
+  }
+#pragma unroll
+  for (int j = 0; j < kOwn; ++j) {
+    unsigned s = from_acc(lo[j]);
+#pragma unroll
+    for (int u = 0; u < kLanes; ++u) s += g.w[u] * from_acc(acc[u][j]);
     c[j] = (int)(s - g.bias);
   }
 }
@@ -171,42 +183,73 @@ __device__ __forceinline__ void carry_local(int (&c)[kOwn], int cin) {
   c[0] = (c[0] & 0xFF) + cin;
 }
 
-// The four carry passes of a product; the carry into limb 8q comes from
-// the lane before (lane 3 for lane 0, times 38) through the carry words.
-__device__ __forceinline__ void carry(const Group& g, int (&c)[kOwn]) {
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    g.carry[p * kLanes + g.q] = c[kOwn - 1] >> 8;
-    __syncwarp();
-    carry_local(c, g.carry[p * kLanes + ((g.q + kLanes - 1) & (kLanes - 1))] * g.wcarry);
-  }
+// Carry pass p of an operation: the carry into limb 8q comes from the
+// lane before (lane 3 for lane 0, times 38) through slot p of the group's
+// carry words (kLanes words a slot). Pass p of every operation uses slot
+// p, and every operation runs at least two passes, so a lane writes a
+// slot again only after a __syncwarp() that each lane reaches after
+// reading it.
+__device__ __forceinline__ void carry_pass(const Lane& l, int* words, int p, int (&c)[kOwn]) {
+  words[p * kLanes + l.q] = c[kOwn - 1] >> 8;
+  __syncwarp();
+  carry_local(c, words[p * kLanes + ((l.q + kLanes - 1) & (kLanes - 1))] * l.wcarry);
 }
 
-// ---- the two operations ---------------------------------------------------
+// ---- operations -------------------------------------------------------------
 //
 // Every lane of the warp must call them together (they hold __syncwarp):
 // a lane past the end of the data computes on a stand-in element and
 // skips its store instead of leaving.
 
-// Field multiply: |limbs| <= 511 in, limbs <= 293 out (as _mul_plain).
-__device__ __forceinline__ Fe mul(const Group& g, const Fe& a, const Fe& b) {
+// The product of two operand rows already published (as publish() writes
+// them) and made visible by a __syncwarp(): the convolution and its four
+// carry passes. |limbs| <= 511 in, limbs in [-38, 293] out (as _mul_plain).
+__device__ __forceinline__ Fe mul_rows(const Lane& l, int* words, const float* row_a,
+                                       const float* row_b) {
   Fe r;
+  conv(l, row_a, row_b, r.v);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) carry_pass(l, words, p, r.v);
+  return r;
+}
+
+// Field multiply.
+__device__ __forceinline__ Fe mul(const Group& g, const Fe& a, const Fe& b) {
   publish(g.ra, a, g.q);
   publish(g.rb, b, g.q);
   __syncwarp();
-  conv(g, g.ra, g.rb, r.v);
-  carry(g, r.v);
-  return r;
+  return mul_rows(g, g.carry, g.ra, g.rb);
 }
 
 // Field squaring, mul(g, a, a) with one operand row published.
 __device__ __forceinline__ Fe sqr(const Group& g, const Fe& a) {
-  Fe r;
   publish(g.ra, a, g.q);
   __syncwarp();
-  conv(g, g.ra, g.ra, r.v);
-  carry(g, r.v);
+  return mul_rows(g, g.carry, g.ra, g.ra);
+}
+
+// a where `c` holds, else b, limb by limb (a select of whole structs on
+// a run-time condition would go through local memory).
+__device__ __forceinline__ Fe select(bool c, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < kOwn; ++k) r.v[k] = c ? a.v[k] : b.v[k];
   return r;
+}
+
+// a + b with one carry pass (field.add) where `sub` is false, a - b with
+// two (field.sub, whose 8p is the reference's zero) where it is true.
+// `sub` may differ from group to group of the warp: every lane runs both
+// passes' exchanges, and an add keeps its value after the first.
+__device__ __forceinline__ Fe add_or_sub(const Lane& l, int* words, const Fe& a, const Fe& b,
+                                         bool sub) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < kOwn; ++k) r.v[k] = sub ? a.v[k] - b.v[k] : a.v[k] + b.v[k];
+  carry_pass(l, words, 0, r.v);
+  Fe r2 = r;
+  carry_pass(l, words, 1, r2.v);
+  return select(sub, r2, r);
 }
 
 // This lane's limbs of element row `src` (32 ints, 16-byte aligned).
@@ -226,72 +269,6 @@ __device__ __forceinline__ void store(int* dst, const Fe& a, int q) {
     *reinterpret_cast<int4*>(dst + q * kOwn + 4 * m) =
         make_int4(a.v[4 * m], a.v[4 * m + 1], a.v[4 * m + 2], a.v[4 * m + 3]);
   }
-}
-
-// ---- batched operations (B3) ----------------------------------------------
-//
-// Independent operations of one group share their exchanges: a pass
-// publishes the top carries of up to four values with one 16-byte store
-// per lane, __syncwarp()s once and reads the lane before's with one
-// load; a batched multiply publishes all its operand rows before one
-// __syncwarp(). The passes alternate between two sets of carry words,
-// and each operation below runs an even number of them, starting on set
-// 0: a set is written again two passes after it was read, with a
-// __syncwarp() between, so no lane overwrites a word another has still
-// to read. Every lane of the warp calls them together.
-
-constexpr int kCarrySet = 4 * kLanes;  // words in one set: four per lane
-
-struct Carries {  // a group's two sets of carry words, 16-byte aligned
-  int* set[2];
-};
-
-// One carry pass over v[0..N), N <= 4, sharing one exchange.
-template <int N>
-__device__ __forceinline__ void carry_pass(const Lane& l, int* set, Fe* v) {
-  static_assert(N >= 1 && N <= 4, "four carry words per lane");
-  int top[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int n = 0; n < N; ++n) top[n] = v[n].v[kOwn - 1] >> 8;
-  *reinterpret_cast<int4*>(set + 4 * l.q) = make_int4(top[0], top[1], top[2], top[3]);
-  __syncwarp();
-  const int4 in = *reinterpret_cast<const int4*>(set + 4 * ((l.q + kLanes - 1) & (kLanes - 1)));
-  const int cin[4] = {in.x, in.y, in.z, in.w};
-#pragma unroll
-  for (int n = 0; n < N; ++n) carry_local(v[n].v, cin[n] * l.wcarry);
-}
-
-// out[n] = a[n] + b[n] with one carry pass (field.add) and
-// out[N + n] = a[n] - b[n] with two (field.sub, whose 8p is the
-// reference's zero), for n < N <= 2: two exchanges in all.
-template <int N>
-__device__ __forceinline__ void add_sub(const Lane& l, const Carries& cw, const Fe* a,
-                                        const Fe* b, Fe* out) {
-  static_assert(N >= 1 && N <= 2, "2N values share the first pass");
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-#pragma unroll
-    for (int k = 0; k < kOwn; ++k) {
-      out[n].v[k] = a[n].v[k] + b[n].v[k];
-      out[N + n].v[k] = a[n].v[k] - b[n].v[k];
-    }
-  }
-  carry_pass<2 * N>(l, cw.set[0], out);
-  carry_pass<N>(l, cw.set[1], out + N);
-}
-
-// out[n] = row_a[n] * row_b[n] for n < N <= 4, from operand rows the
-// caller has published (floats, as publish() writes them) and made
-// visible with one __syncwarp(): N convolutions, then the four carry
-// passes of all N products, four exchanges in all.
-template <int N>
-__device__ __forceinline__ void mul_rows(const Lane& l, const Carries& cw,
-                                         const float* const (&row_a)[N],
-                                         const float* const (&row_b)[N], Fe* out) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) conv(l, row_a[n], row_b[n], out[n].v);
-#pragma unroll
-  for (int p = 0; p < 4; ++p) carry_pass<N>(l, cw.set[p & 1], out);
 }
 
 // This lane's 8 limbs of `row` (32 ints in shared memory) rewritten in

@@ -20,27 +20,31 @@
 // within |limb| <= 511, every operand of every multiply of a chain is
 // too: the range in which the FP32 convolution is exact.
 //
-// Mapping: fe25519_group.cuh's. Four lanes own one chain, lane q holding
-// limbs [8q, 8q + 8) of the running point's four coordinates in
-// registers; a warp walks eight chains, and a block is that one warp, so
-// the A-side call's 512 chains still spread over 64 SMs.
-//
-// A step (curve.add_cached) is two rounds of four independent
-// multiplies, each after a round of adds and subs, and every round is
-// batched: a multiply round publishes its eight operands, __syncwarp()s
-// once, runs four convolutions and then the carry passes of all four
-// products with one exchange per pass. A step costs 14 __syncwarp()s:
-// 2 (y - x, y + x), 1 + 4 (a, b, c, d), 2 (e, f, g, h), 1 + 4 (the new
-// x, y, z, t); one per operation would cost 49.
+// Mapping. A step (curve.add_cached) is two rounds of four independent
+// multiplies: a = (y - x) ymx, b = (y + x) ypx, c = t t2d, d = z z2, then
+// x' = e f, y' = g h, z' = f g, t' = e h with e = b - a, f = d - c,
+// g = d + c, h = b + a. Sixteen lanes own one chain, as four groups of
+// fe25519_group.cuh's four lanes, and each group runs one multiply of
+// each round: group n keeps coordinate n of the running point in
+// registers (eight limbs per lane) and computes, in order, a or b or d or
+// c, then e or h or f or g, each one add or sub, then its new coordinate.
+// The groups meet through rows in shared memory: the coordinates x and
+// y, the four products, e to h. A warp walks two chains, and a block is
+// that one warp. Against four lanes per chain running all four
+// multiplies of a round, this issues about as many instructions per
+// chain but from four times as many warps, each a quarter as long: the
+// A-side call's 512 chains fill 256 of the card's 528 schedulers instead
+// of 64, and the R side's 8,192 give each scheduler several warps to
+// hide one another's latencies. A step costs 16 __syncwarp()s.
 //
 // What bounds it on an H100: bytes, barely (a chain moves 16 KB for
 // ~316k operations; see chip_smoke.py). So the copies overlap the
 // arithmetic: while a step computes, 16-byte cp.async copies bring the
-// next step's cached rows of the warp's eight chains (4 x 1 KB,
-// contiguous in memory) into the other half of a double buffer in
-// shared memory, where each lane turns its own limbs of them into floats
-// in place, the operand rows of the first multiply round. The prefixes
-// go out with 16-byte stores straight from registers.
+// next step's cached rows of the warp's two chains (4 x 256 bytes,
+// contiguous per coordinate) into the other half of a double buffer in
+// shared memory, where the group that uses a row turns its own limbs of
+// it into floats in place. Each group stores its coordinate of every
+// prefix with 16-byte stores straight from registers.
 //
 // C need not be a multiple of anything: the lanes of a chain past the
 // end compute on a stand-in (chain 0's first point, zero-filled cached
@@ -51,33 +55,45 @@
 
 namespace {
 
-constexpr int kChains = 8;                       // chains per warp = per block
-constexpr int kThreads = kChains * feg::kLanes;  // one warp
+constexpr int kChains = 2;   // chains per warp = per block
+constexpr int kGroups = 4;   // lane groups per chain, one multiply each per round
 constexpr int kCoords = 4;
-constexpr int kChunks = feg::kLimbs / 4;         // 16-byte chunks per row
+constexpr int kThreads = kChains * kGroups * feg::kLanes;  // one warp
+constexpr int kChunks = feg::kLimbs / 4;                   // 16-byte chunks per row
 
-// The warp's shared memory. Rows of one kind for the eight chains sit
-// kRow words apart, so the lanes of a 16-byte access meet on no bank.
-struct Smem {
-  int cached[2][kCoords][kChains][feg::kRow];  // double buffer: one step's cached rows
-  float ops[kCoords][kChains][feg::kRow];      // a round's published operands
-  int carry[2][kChains][feg::kCarrySet];       // the two sets of carry words
+// One chain's rows in shared memory, kRow words apart.
+struct ChainRows {
+  int pq[kGroups][feg::kRow];                // the coordinates, then the products
+  float ops[kGroups][feg::kRow];             // each group's published multiply operand
+  int cached[2][kCoords][feg::kRow];         // double buffer: one step's cached rows
 };
 
-// Start copying step j's cached rows of chains [e0, e0 + 8) into buffer
-// b: per coordinate 1 KB, 64 chunks of 16 bytes, two per lane.
+struct Smem {
+  ChainRows chain[kChains];
+  int carry[kChains][kGroups][feg::kCarryWords];  // each group's carry words
+};
+
+// One of four values by a run-time index, without an indexed local array
+// (which nvcc would put in local memory).
+template <class T>
+__device__ __forceinline__ T pick(int i, T v0, T v1, T v2, T v3) {
+  return i == 0 ? v0 : (i == 1 ? v1 : (i == 2 ? v2 : v3));
+}
+
+// Start copying step j's cached rows of chains [e0, e0 + 2) into buffer
+// b: per coordinate the two chains' rows, 256 contiguous bytes, 16
+// chunks of 16 bytes; lanes 0-15 take coordinate 2c, lanes 16-31
+// coordinate 2c + 1, for c = 0, 1.
 __device__ __forceinline__ void prefetch(Smem& s, int b, const int* const (&cached)[kCoords],
                                          long long chains, long long e0, int j, int lane) {
+  const int h = (lane / kChunks) % kChains, part = lane % kChunks, half = lane / (kThreads / 2);
+  const bool valid = e0 + h < chains;
+  const long long row = ((long long)j * chains + (valid ? e0 + h : 0)) * feg::kLimbs + 4 * part;
 #pragma unroll
-  for (int k = 0; k < kCoords; ++k) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = lane + kThreads * h, chain = i / kChunks, part = i % kChunks;
-      const bool valid = e0 + chain < chains;
-      const long long row = (long long)j * chains + (valid ? e0 + chain : 0);
-      cp_async16(&s.cached[b][k][chain][4 * part], cached[k] + row * feg::kLimbs + 4 * part,
-                 valid);
-    }
+  for (int c = 0; c < 2; ++c) {
+    const int k = 2 * c + half;
+    const int* src = half ? cached[2 * c + 1] : cached[2 * c];
+    cp_async16(&s.chain[h].cached[b][k][4 * part], src + row, valid);
   }
   cp_async_commit();
 }
@@ -90,25 +106,32 @@ scan_blocks_kernel(const int* __restrict__ fx, const int* __restrict__ fy,
                    int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz,
                    int* __restrict__ ot, long long chains, int steps) {
   __shared__ __align__(16) Smem s;
-  const int lane = threadIdx.x, c = lane / feg::kLanes, q = lane % feg::kLanes;
-  const long long e0 = (long long)blockIdx.x * kChains, e = e0 + c;
+  const int lane = threadIdx.x, q = lane % feg::kLanes;
+  const int g = (lane / feg::kLanes) % kGroups, h = lane / (feg::kLanes * kGroups);
+  const long long e0 = (long long)blockIdx.x * kChains, e = e0 + h;
   const bool live = e < chains;
-  const int* const first[kCoords] = {fx, fy, fz, ft};
   const int* const cached[kCoords] = {ymx, ypx, t2d, z2};
-  int* const out[kCoords] = {ox, oy, oz, ot};
+  int* const out = pick(g, ox, oy, oz, ot);
   const feg::Lane l = feg::make_lane(q);
-  const feg::Carries cw = {{s.carry[0][c], s.carry[1][c]}};
-  const float* const ops[kCoords] = {s.ops[0][c], s.ops[1][c], s.ops[2][c], s.ops[3][c]};
+  int* const words = s.carry[h][g];
+  ChainRows& r = s.chain[h];
+
+  // Round 1: group 0 multiplies y - x by ymx, 1 y + x by ypx, 2 its z by
+  // z2, 3 its t by t2d (the cached row k1). Round 2: group n publishes e,
+  // h, f, g (n = 0..3): the add or sub of products `lead` and `other`
+  // (rows of pq: 0 a, 1 b, 2 d, 3 c); then x = e f, y = g h, z = f g,
+  // t = e h from operand rows o2a and o2b.
+  const int k1 = g == 2 ? 3 : (g == 3 ? 2 : g);
+  const bool sub_a = g == 0, sub_b = (g & 1) == 0;
+  const int lead = g < 2 ? 1 : 2, other = g < 2 ? 0 : 3;
+  const int o2a = g == 1 ? 3 : (g == 2 ? 2 : 0), o2b = g == 0 ? 2 : (g == 2 ? 3 : 1);
 
   if (steps > 0) prefetch(s, 0, cached, chains, e0, 0, lane);
 
-  feg::Fe p[kCoords];  // the running point x, y, z, t
+  // this group's coordinate of the running point
+  feg::Fe p = feg::load(pick(g, fx, fy, fz, ft) + (live ? e : 0) * feg::kLimbs, q);
   long long o = (live ? e : 0) * (steps + 1) * (long long)feg::kLimbs;
-#pragma unroll
-  for (int k = 0; k < kCoords; ++k) {
-    p[k] = feg::load(first[k] + (live ? e : 0) * feg::kLimbs, q);
-    if (live) feg::store(out[k] + o, p[k], q);
-  }
+  if (live) feg::store(out + o, p, q);
 
 #pragma unroll 1
   for (int j = 0; j < steps; ++j) {
@@ -119,45 +142,28 @@ scan_blocks_kernel(const int* __restrict__ fx, const int* __restrict__ fy,
       cp_async_commit();  // an empty group, so that the wait below waits for step j
     }
     cp_async_wait<1>();  // this lane's copies of step j have landed
-
-    // y + x and y - x; the first pass's __syncwarp() also makes every
-    // lane's copies of step j visible to the warp
-    feg::Fe yx[2];
-    feg::add_sub<1>(l, cw, &p[1], &p[0], yx);
-#pragma unroll
-    for (int k = 0; k < kCoords; ++k) feg::to_float_row(s.cached[b][k][c], q);
-    feg::publish(s.ops[0][c], yx[1], q);  // y - x
-    feg::publish(s.ops[1][c], yx[0], q);  // y + x
-    feg::publish(s.ops[2][c], p[3], q);   // t
-    feg::publish(s.ops[3][c], p[2], q);   // z
+    feg::store(r.pq[g], p, q);
+    // makes the coordinates, and every lane's copies of step j, visible
     __syncwarp();
-    const float* const rows[kCoords] = {
-        reinterpret_cast<const float*>(s.cached[b][0][c]),
-        reinterpret_cast<const float*>(s.cached[b][1][c]),
-        reinterpret_cast<const float*>(s.cached[b][2][c]),
-        reinterpret_cast<const float*>(s.cached[b][3][c])};
-    feg::Fe m[4];  // a, b, c, d
-    feg::mul_rows<4>(l, cw, ops, rows, m);
 
-    // h = b + a, g = d + c; e = b - a, f = d - c
-    const feg::Fe hi[2] = {m[1], m[3]}, lo[2] = {m[0], m[2]};
-    feg::Fe hgef[4];
-    feg::add_sub<2>(l, cw, hi, lo, hgef);
-    feg::publish(s.ops[0][c], hgef[2], q);  // e
-    feg::publish(s.ops[1][c], hgef[3], q);  // f
-    feg::publish(s.ops[2][c], hgef[1], q);  // g
-    feg::publish(s.ops[3][c], hgef[0], q);  // h
+    feg::to_float_row(r.cached[b][k1], q);
+    const feg::Fe yx =
+        feg::add_or_sub(l, words, feg::load(r.pq[1], q), feg::load(r.pq[0], q), sub_a);
+    feg::publish(r.ops[g], feg::select(g < 2, yx, p), q);
     __syncwarp();
-    // x = e f, y = g h, z = f g, t = e h
-    const float* const ra[4] = {ops[0], ops[2], ops[1], ops[0]};
-    const float* const rb[4] = {ops[1], ops[3], ops[2], ops[3]};
-    feg::mul_rows<4>(l, cw, ra, rb, p);
+    const feg::Fe prod =
+        feg::mul_rows(l, words, r.ops[g], reinterpret_cast<const float*>(r.cached[b][k1]));
+
+    feg::store(r.pq[g], prod, q);
+    __syncwarp();
+    const feg::Fe efgh =
+        feg::add_or_sub(l, words, feg::load(r.pq[lead], q), feg::load(r.pq[other], q), sub_b);
+    feg::publish(r.ops[g], efgh, q);
+    __syncwarp();
+    p = feg::mul_rows(l, words, r.ops[o2a], r.ops[o2b]);
 
     o += feg::kLimbs;
-#pragma unroll
-    for (int k = 0; k < kCoords; ++k) {
-      if (live) feg::store(out[k] + o, p[k], q);
-    }
+    if (live) feg::store(out + o, p, q);
   }
 }
 
