@@ -12,8 +12,9 @@ threads as std::threads. The copies go to build/cuda_emu/ at the root of
 the checkout. Each emulated kernel then runs through ctypes on CPU
 tensors and is held, limb for limb, against its plain PyTorch version:
 B3 on chain counts around its eight chains per block, with an all-511
-chain, a y == x chain and signed limbs; B1 and B2 on limbs in [0, 512)
-and [-511, 512).
+chain, a y == x chain and signed limbs; B1 (two operands, a squaring, a
+broadcast constant) and B2 on limbs in [0, 512) and [-511, 512), row 0
+at 511.
 
 --eager runs each cp.async copy when it is issued instead of when its
 group is waited for. --tsan builds with ThreadSanitizer, which reports
@@ -112,13 +113,14 @@ def check(suffix: str) -> bool:
             out = torch.empty_like(a)
             results = []
             for x, x_step, y, y_step, want in ((a, 32, b, 32, F._mul_plain(a, b)),
+                                               (a, 32, a, 32, F._mul_plain(a, a)),
                                                (a, 32, d, 0, F._mul_plain(a, d))):
                 mul(x.data_ptr(), x_step, y.data_ptr(), y_step, out.data_ptr(), m, 0, None)
                 results.append(torch.equal(out, want))
             pow22523(a.data_ptr(), out.data_ptr(), m, 0, None)
             results.append(torch.equal(out, F._pow22523_plain(a)))
             ok &= all(results)
-            print(f"fe_mul, fe_mul by a constant, fe_pow22523, m = {m} in [{lo}, 512): {results}")
+            print(f"fe_mul (a b, a a, a d), fe_pow22523, m = {m} in [{lo}, 512): {results}")
     return ok
 
 

@@ -80,7 +80,7 @@ struct Fe {  // this lane's 8 limbs of one field element
 // What a lane's arithmetic needs to know of its place in the group.
 struct Lane {
   int q;            // this lane owns limbs [8q, 8q + 8)
-  unsigned w[kLanes];  // w[u]: weight of rotated block u (w[0]: block 0 above t = j; see conv)
+  unsigned w[kLanes];  // w[u]: weight of rotated block u (of block 0's terms t > j for u = 0)
   unsigned bias;    // the accumulators' biases, weighted, to remove
   int wcarry;       // 38 on lane 0 (its carry-in wraps from limb 31)
 };
@@ -132,8 +132,7 @@ __device__ __forceinline__ void publish(float* row, const Fe& a, int q) {
 // weight 38 while q + u < 4 and on weight 1 after. Each (j, block) has
 // its own accumulator of at most 8 products; the weights w[u] are
 // per-lane constants. The loop runs over t outside and j inside, so
-// consecutive FFMAs feed eight different accumulators and none waits on
-// the one before: a lone warp issues them back to back.
+// that consecutive FFMAs feed eight different accumulators.
 __device__ __forceinline__ void conv(const Lane& g, const float* row_a, const float* row_b,
                                      int (&c)[kOwn]) {
   float x[kLimbs], y[kLimbs];

@@ -24,13 +24,14 @@ Kernel in this module (CUDA C++, csrc/scan_blocks.cu):
   B3 `scan_blocks` replaces pallas_field._scan_blocks_limbs_first: the
   within-block inclusive prefix sums of `_boundary_prefixes`, 15 cached
   additions (120 field multiplies) per 16-point block. It runs on the
-  shuffle-free multiply of csrc/fe25519_group.cuh: four lanes own one
-  chain, the running point in registers, and a warp walks eight chains;
-  each step's two rounds of four independent multiplies share their
-  barriers, and the next step's cached operands are copied into shared
-  memory (cp.async) while the current one computes. On an H100 it sits
-  at the ridge between bytes and operations: a chain moves 16 KB (its
-  first point and 15 cached operands in, its 16 prefixes out) for ~316k
+  shuffle-free multiply of csrc/fe25519_group.cuh. Each of a step's two
+  rounds holds four independent multiplies, so sixteen lanes own one
+  chain, as four groups of four, each group one multiply and one add or
+  sub per round, meeting through shared memory; a warp walks two chains,
+  and the next step's cached operands are copied into shared memory
+  (cp.async) while the current one computes. On an H100 it sits at the
+  ridge between bytes and operations: a chain moves 16 KB (its first
+  point and 15 cached operands in, its 16 prefixes out) for ~316k
   operations, ~19 per byte. Its arithmetic is the plain version's,
   limb for limb: `sub` adds the reference's EIGHT_P (zero), as the
   reference's lax.scan does, not the Pallas kernel's true 8p. Unlike the

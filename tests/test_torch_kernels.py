@@ -9,7 +9,7 @@ tests/conftest.py imports jax, which these tests do not need):
 Integer arithmetic: every comparison is exact (torch.equal). Shapes
 include ragged edges the kernels mask themselves (element counts that
 are not multiples of B1's and B2's 32 elements per block, chain counts
-that are not multiples of B3's eight chains per block), no element at
+that are not multiples of B3's two chains per block), no element at
 all, the all-511 worst case of the FP32 convolution (and, for B3, of the
 8p that the reference's arithmetic adds as zero), limbs below zero, and
 operands the wrappers must copy (a transposed view, a misaligned view)
@@ -91,8 +91,9 @@ def _scan_inputs(rng, chains, steps, kind, device):
     ],
 )
 def test_scan_blocks_kernel_equals_plain(card, chains, steps, kind):
-    """Chain counts around B3's eight chains per block (1, 7, 9, 513),
-    the A side's 512, no step at all; one launch per call."""
+    """Chain counts that leave B3's last block (two chains) half empty
+    (1, 5, 7, 9, 513), the A side's 512, no step at all; one launch per
+    call."""
     rng = np.random.default_rng(200 + chains)
     first, rest = _scan_inputs(rng, chains, steps, kind, card)
     before = M.SCAN_BLOCKS.launches
