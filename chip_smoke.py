@@ -27,11 +27,33 @@ failure exits non-zero, nothing is caught and carried past):
   6. a breakdown of one range-sized `kernel_eq`: host prep, copy, wall
      time, the card's busy time and idle share, each kernel's summed
      device time (torch.profiler), and B1's host time in `field.mul`
-     with its calls by size.
+     with its calls by size;
+  7. sr25519: verify_commit_range over 8 commits of a 150-validator
+     sr25519 set (808 signatures, the 1,024 bucket), without a hub: B1,
+     B2 and B3 must each launch; a tampered signature gives the right
+     failed_index; 256 bitmap entries agree with host sr25519
+     verification; prints sigs/s, the wall and the host resolve seconds
+     (ristretto decoding and the Merlin transcript);
+  8. the mixed ed25519 + secp256k1 set of BASELINE config 4 (150
+     validators, 4 commits) through verify_commit_light inside a running
+     VerifyHub: no error, every verdict as the host's, and a tampered
+     secp256k1 signature raises; prints the wall and the dispatch routes;
+  9. the adaptive cutoff measured on the card (`batch._measure_cutoff`):
+     the device call at 64 signatures, the host rate, the measured and
+     the clamped MIN_TPU_BATCH;
+ 10. the hub: with max_batch 8,192 the 54-commit range of phase 3 through
+     verify_commit_range on the backfill lane — every dispatch's route
+     must be "cuda" and B1–B3 must launch; the same range again must come
+     wholly from the verdict cache with no launch; then, at the default
+     max_batch (512), the split of dispatches between "cuda" and "cpu"
+     (printed, not asserted). Prints the hub's stats, wall and sigs/s
+     beside phase 3's direct call; `running_hub()` is None after release.
 
-Prints the card's name and power limit, `breakdown`, `slice` and
-`kernels` JSON lines, and last {"ok": true, "device": {...}}. Imports nothing of JAX
-or of the JAX package. Build output goes to build/torch_ext/.
+Each path's launch counts are set to 0 just before it and read just
+after. Prints the card's name and power limit, `breakdown`, `sr25519`,
+`mixed`, `cutoff`, `hub`, `slice` and `kernels` JSON lines, and last
+{"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
+package. Build output goes to build/torch_ext/.
 """
 
 from __future__ import annotations
@@ -45,8 +67,12 @@ import time
 
 N_VALS = 150
 N_COMMITS = 54
+N_SR_COMMITS = 8
+N_MIXED_COMMITS = 4
 CHAIN_ID = "smoke-chain"
 TAMPER_COMMIT, TAMPER_VAL = 20, 5
+SR_TAMPER_COMMIT, SR_TAMPER_VAL = 3, 7
+HUB_MAX_BATCH = 8192
 SEED = 20261016
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
@@ -220,10 +246,10 @@ def check_kernels(dev) -> list[dict]:
     return rows
 
 
-def build_commits(n_vals: int, n_commits: int):
+def build_commits(n_vals: int, n_commits: int, key_types=("ed25519",)):
     from tendermint_tpu_torch import testing as tt
 
-    vals, keys = tt.make_validator_set(n_vals)
+    vals, keys = tt.make_validator_set(n_vals, key_types=key_types)
     entries = []
     for h in range(1, n_commits + 1):
         bid = tt.make_block_id(b"smoke-%d" % h)
@@ -471,6 +497,215 @@ def drive_tampered(dev, entries) -> None:
     print(f"cross-check: {len(sample)} bitmap entries agree with host verification")
 
 
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _launch_counts(reset: bool = False) -> dict:
+    """The kernels' launch counts (and set them to 0 when `reset`)."""
+    from tendermint_tpu_torch.crypto.cuda import _build
+
+    counts = {name: k.launches for name, k in _build.KERNELS.items()}
+    if reset:
+        for k in _build.KERNELS.values():
+            k.launches = 0
+    return counts
+
+
+def _require_all_launched(path: str, launches: dict) -> None:
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"{path}: {missing} were not launched")
+
+
+def _expect_failure(fn, commit: int, val: int) -> None:
+    from tendermint_tpu_torch.types.validation import InvalidCommitError
+
+    try:
+        fn()
+    except InvalidCommitError as e:
+        if getattr(e, "failed_index", commit) != commit:
+            raise AssertionError(f"failed_index {getattr(e, 'failed_index', None)}") from e
+        if f"index {val}" not in str(e):
+            raise AssertionError(f"wrong signature blamed: {e}") from e
+    else:
+        raise AssertionError("a tampered signature verified")
+
+
+def drive_sr25519(dev) -> dict:
+    """Phase 7: an sr25519 range through the same three kernels."""
+    from tendermint_tpu_torch.crypto import sr25519
+    from tendermint_tpu_torch.crypto.cuda import verify as V
+    from tendermint_tpu_torch.types.validation import verify_commit_range
+
+    t0 = time.perf_counter()
+    entries = build_commits(N_VALS, N_SR_COMMITS, key_types=("sr25519",))
+    sign_s = time.perf_counter() - t0
+    items = range_items(entries)
+
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    verify_commit_range(CHAIN_ID, entries, device=dev)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    _require_all_launched("sr25519 verify_commit_range", launches)
+
+    t0 = time.perf_counter()
+    for it in items:
+        V.resolve_sr25519(*it)
+    resolve_s = time.perf_counter() - t0
+
+    bad = tamper(entries, SR_TAMPER_COMMIT, SR_TAMPER_VAL)
+    _expect_failure(lambda: verify_commit_range(CHAIN_ID, bad, device=dev),
+                    SR_TAMPER_COMMIT, SR_TAMPER_VAL)
+    bad_items = range_items(bad)
+    bad_pos = SR_TAMPER_COMMIT * (len(bad_items) // len(bad)) + SR_TAMPER_VAL
+    bitmap = V.verify_resolved([V.resolve_sr25519(*it) for it in bad_items], dev)
+    if bitmap[bad_pos] or int(bitmap.sum()) != len(bad_items) - 1:
+        raise AssertionError("sr25519 bitmap does not single out the tampered signature")
+    rng = random.Random(SEED + 7)
+    sample = sorted(set(rng.sample(range(len(bad_items)), min(255, len(bad_items)))) | {bad_pos})
+    for i in sample:
+        if bool(bitmap[i]) != sr25519.verify(*bad_items[i]):
+            raise AssertionError(f"sr25519 bitmap entry {i} disagrees with host verification")
+    print(f"sr25519 cross-check: {len(sample)} bitmap entries agree with host verification")
+    return {
+        "entry": "verify_commit_range",
+        "key_type": "sr25519",
+        "commits": len(entries),
+        "validators": len(entries[0][0]),
+        "sigs": len(items),
+        "bucket": V._bucket(len(items)),
+        "sign_s": sign_s,
+        "wall_s": wall,
+        "sigs_per_s": len(items) / wall,
+        "host_resolve_s": resolve_s,
+        "host_resolve_us_per_sig": resolve_s / len(items) * 1e6,
+        "launches": launches,
+    }
+
+
+def _dispatch_routes() -> list[str]:
+    """Routes of the hub.dispatch spans in the trace ring, oldest first."""
+    from tendermint_tpu_torch.libs import trace
+
+    return [s["attrs"]["route"] for s in trace.RECORDER.dump(subsystem="hub")
+            if s["name"] == "dispatch"]
+
+
+def drive_mixed(dev) -> dict:
+    """Phase 8: BASELINE config 4 — a mixed ed25519 + secp256k1 set
+    through verify_commit_light inside a running hub."""
+    from tendermint_tpu_torch.crypto import verify_hub
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.types.validation import verify_commit_light
+
+    entries = build_commits(N_VALS, N_MIXED_COMMITS, key_types=("ed25519", "secp256k1"))
+    vals = entries[0][0]
+    types = sorted({v.pub_key.TYPE for v in vals.validators})
+    if types != ["ed25519", "secp256k1"]:
+        raise AssertionError(f"mixed set holds {types}")
+    # the verdicts the host gives, signature by signature
+    host = [vals.validators[i].pub_key.verify_signature(
+                commit.vote_sign_bytes(CHAIN_ID, i), cs.signature)
+            for _v, _b, _h, commit in entries for i, cs in enumerate(commit.signatures)]
+    if not all(host):
+        raise AssertionError("host verification rejected a valid mixed-set signature")
+    secp = next(i for i, v in enumerate(vals.validators) if v.pub_key.TYPE == "secp256k1")
+    bad = tamper(entries, 1, secp)
+    trace.RECORDER.clear()
+    verify_hub.acquire_hub(device=dev)
+    try:
+        _launch_counts(reset=True)
+        t0 = time.perf_counter()
+        for v, bid, h, commit in entries:
+            verify_commit_light(CHAIN_ID, v, bid, h, commit, device=dev)
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        _v, bid, h, commit = bad[1]
+        _expect_failure(lambda: verify_commit_light(CHAIN_ID, vals, bid, h, commit, device=dev),
+                        1, secp)
+        stats = verify_hub.running_hub().stats()
+    finally:
+        verify_hub.release_hub()
+    if verify_hub.running_hub() is not None:
+        raise AssertionError("release_hub left a running hub")
+    routes = _dispatch_routes()
+    sigs = len(range_items(entries))
+    return {
+        "entry": "verify_commit_light",
+        "key_types": types,
+        "commits": len(entries),
+        "validators": len(vals),
+        "sigs": sigs,
+        "wall_s": wall,
+        "sigs_per_s": sigs / wall,
+        "dispatches": {r: routes.count(r) for r in sorted(set(routes))},
+        "hub_submitted": stats["submitted"],
+        "launches": launches,
+    }
+
+
+def drive_hub(dev, entries, direct: dict) -> dict:
+    """Phase 10: the VerifyHub in front of verify_commit_range."""
+    from tendermint_tpu_torch.crypto import verify_hub
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.types.validation import verify_commit_range
+
+    n_range = len(range_items(entries))
+    trace.configure(enabled=True)
+
+    def run(label: str, **hub_kw) -> list[dict]:
+        trace.RECORDER.clear()
+        hub = verify_hub.acquire_hub(device=dev, **hub_kw)
+        passes = []
+        try:
+            for _ in range(2):
+                before = hub.stats()
+                _launch_counts(reset=True)
+                t0 = time.perf_counter()
+                verify_commit_range(CHAIN_ID, entries, device=dev)
+                _sync(dev)
+                wall = time.perf_counter() - t0
+                routes = _dispatch_routes()
+                trace.RECORDER.clear()
+                after = hub.stats()
+                passes.append({
+                    "hub": label,
+                    "max_batch": hub.max_batch,
+                    "wall_s": wall,
+                    "sigs_per_s": n_range / wall,
+                    "dispatches": {r: routes.count(r) for r in sorted(set(routes))},
+                    "cache_hits": after["cache_hits"] - before["cache_hits"],
+                    "launches": _launch_counts(),
+                    "stats": after,
+                })
+        finally:
+            verify_hub.release_hub()
+        if verify_hub.running_hub() is not None:
+            raise AssertionError("release_hub left a running hub")
+        return passes
+
+    first, cached = run("max_batch", max_batch=HUB_MAX_BATCH)
+    if not first["dispatches"] or set(first["dispatches"]) != {"cuda"}:
+        raise AssertionError(f"hub dispatches off the card: {first['dispatches']}")
+    _require_all_launched("verify_commit_range through the hub", first["launches"])
+    if cached["cache_hits"] != n_range or any(cached["launches"].values()) or cached["dispatches"]:
+        raise AssertionError(f"second pass not served from the cache: {cached}")
+    default, default_again = run("default")
+    return {
+        "entry": "verify_commit_range (lane backfill) through acquire_hub",
+        "sigs": n_range,
+        "direct_wall_s": direct["wall_s"],
+        "direct_sigs_per_s": direct["sigs_per_s"],
+        "passes": [first, cached, default, default_again],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -515,6 +750,33 @@ def main() -> int:
     for row in rows:
         # the kernel's summed device time inside one main-path kernel_eq
         row["main_path_device_ms"] = bd["ported_kernels_device_ms"][row["name"]]
+
+    sr = drive_sr25519(dev)
+    print(json.dumps({"sr25519": sr}))
+    mixed = drive_mixed(dev)
+    print(json.dumps({"mixed": mixed}))
+
+    from tendermint_tpu_torch.crypto import batch
+
+    cutoff = batch._measure_cutoff(dev)
+    if cutoff is None:
+        raise AssertionError("TMTPU_MIN_TPU_BATCH pins the cutoff: unset it to measure")
+    print(json.dumps({"cutoff": cutoff}))
+    hub = drive_hub(dev, entries, run["slice"])
+    print(json.dumps({"hub": hub}))
+
+    by_path = {
+        "verify_commit_range[ed25519]": run["launches"],
+        "verify_commit_range[sr25519]": sr["launches"],
+        "verify_commit_light[ed25519+secp256k1, hub]": mixed["launches"],
+        "verify_commit_range[hub, max_batch 8192]": hub["passes"][0]["launches"],
+        "verify_commit_range[hub, cached]": hub["passes"][1]["launches"],
+        "verify_commit_range[hub, max_batch 512]": hub["passes"][2]["launches"],
+    }
+    run["slice"]["launches_by_path"] = by_path
+    run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
+    for row in rows:
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
 
     print(json.dumps({"slice": run["slice"]}))
     print(json.dumps({"kernels": rows}))

@@ -3,8 +3,9 @@
 The port's copy of `tendermint_tpu.crypto` (reference crypto/crypto.go:22-54):
 `PubKey`, `PrivKey` and the two-method `BatchVerifier` (`add`, `verify`)
 that the commit-verification funnel gates on. The CUDA implementation
-registers behind the same interface (crypto/cuda/). ed25519 is the only
-key type this slice carries.
+registers behind the same interface (crypto/cuda/). Key types: ed25519
+and sr25519 (both batch on the card), secp256k1 (host verification, as
+in the reference); BLS is not ported yet.
 """
 
 from __future__ import annotations
@@ -75,7 +76,11 @@ def register_pubkey_type(type_name: str, decoder) -> None:
 
 
 #: builtin key-type modules, lazily imported on first decode
-_BUILTIN_KEY_MODULES = {"ed25519": "ed25519"}
+_BUILTIN_KEY_MODULES = {
+    "ed25519": "ed25519",
+    "secp256k1": "secp256k1",
+    "sr25519": "sr25519",
+}
 
 
 def pubkey_from_type_and_bytes(type_name: str, data: bytes) -> PubKey:

@@ -1,13 +1,14 @@
-"""Batched ed25519 verification on the card: host preparation, the device
-steps `kernel_eq` and `kernel_sig`, chunked dispatch, and the
-`BatchVerifier` that crypto/batch.py hands out.
+"""Batched ed25519 and sr25519 verification on the card: host
+preparation, the device steps `kernel_eq` and `kernel_sig`, chunked
+dispatch, and the `BatchVerifier` that crypto/batch.py hands out.
 
 The port of tendermint_tpu/crypto/tpu/verify.py (single device; the
 sharded kernels and the mesh are a later slice). Pipeline:
 
-  host:   parse signatures, range-check s < L, hash
-          k = SHA-512(R ‖ A ‖ msg) mod L, draw the random coefficients zᵢ,
-          group the coefficients by public key
+  host:   parse signatures, range-check s < L, derive the challenge
+          k = SHA-512(R ‖ A ‖ msg) mod L (ed25519) or the Merlin
+          transcript challenge of a ristretto-decoded sr25519 signature,
+          draw the random coefficients zᵢ, group them by public key
   device: `kernel_eq` — decompress keys and R points, two MSMs, the
           cofactored identity check of the batch equation
   host:   the per-signature bitmap; when the equation fails, `kernel_sig`
@@ -24,13 +25,15 @@ from __future__ import annotations
 
 import hashlib
 import os
+import threading
 from typing import Callable
 
 import numpy as np
 import torch
 
 from .. import BatchVerifier, PubKey
-from ...device import DEFAULT_DEVICE, resolve
+from ...device import DEFAULT_DEVICE
+from ...device import resolve as resolve_device
 from . import curve, msm
 from .curve import Point
 
@@ -103,7 +106,11 @@ def kernel_eq(ua_bytes, r_bytes, ga_digits, r_digits, zs_digits, s_valid, gidx):
 
 
 class ResolvedSig:
-    """A signature reduced to the Edwards-form check [8](s·B − k·A − R) == O."""
+    """A signature reduced to the Edwards-form check [8](s·B − k·A − R) == O,
+    the shape both key types share. ed25519: k = SHA-512(R ‖ A ‖ msg) mod
+    L; sr25519: k is the Merlin transcript challenge and A/R are the
+    ristretto coset representatives re-encoded in ed25519 compressed
+    form."""
 
     __slots__ = ("a", "r", "s", "k")
 
@@ -124,6 +131,33 @@ def resolve_ed25519(pub: bytes, msg: bytes, sig: bytes) -> ResolvedSig | None:
         return None
     k = int.from_bytes(hashlib.sha512(r + pub + msg).digest(), "little") % L
     return ResolvedSig(pub, r, s_int, k)
+
+
+def resolve_sr25519(pub: bytes, msg: bytes, sig: bytes) -> ResolvedSig | None:
+    """None = malformed (wrong sizes, no schnorrkel marker, an invalid
+    ristretto encoding, or s ≥ L once the marker bit is cleared)."""
+    from .. import sr25519
+
+    triple = sr25519.to_edwards_triple(pub, msg, sig)
+    if triple is None:
+        return None
+    a_ed, r_ed, k = triple
+    s_clear = bytearray(sig[32:])
+    s_clear[31] &= 0x7F
+    s_int = int.from_bytes(bytes(s_clear), "little")
+    if s_int >= L:
+        return None
+    return ResolvedSig(a_ed, r_ed, s_int, k)
+
+
+def resolve(pub_key: PubKey, msg: bytes, sig: bytes) -> ResolvedSig | None:
+    """Dispatch on the key's TYPE; None for a type the equation does not
+    take."""
+    if pub_key.TYPE == "ed25519":
+        return resolve_ed25519(pub_key.bytes(), msg, sig)
+    if pub_key.TYPE == "sr25519":
+        return resolve_sr25519(pub_key.bytes(), msg, sig)
+    return None
 
 
 def prepare_resolved(entries: list[ResolvedSig | None], pad_to: int = 0):
@@ -283,7 +317,7 @@ def verify_resolved(
 ) -> np.ndarray:
     """Batch-equation verification with per-signature attribution: a
     bool bitmap of length len(entries)."""
-    dev = resolve(device)
+    dev = resolve_device(device)
     return _dispatch_and_collect(len(entries), lambda i, j: entries[i:j], dev, rand_bytes)
 
 
@@ -295,7 +329,7 @@ def verify_batch_eq(
 ) -> np.ndarray:
     """(pubkey32, msg, sig64) ed25519 triples -> bool bitmap. Resolution
     (the SHA-512 per signature) runs per chunk inside the dispatch loop."""
-    dev = resolve(device)
+    dev = resolve_device(device)
     return _dispatch_and_collect(
         len(items),
         lambda i, j: [resolve_ed25519(*it) for it in items[i:j]],
@@ -304,23 +338,35 @@ def verify_batch_eq(
     )
 
 
+#: per-thread record of the last dispatch this thread ran, for the
+#: VerifyHub's hub.dispatch spans. The reference fills it on sharded
+#: (multi-device) dispatches only; the port dispatches on one device, so
+#: it stays None until the mesh is ported.
+_dispatch_local = threading.local()
+
+
+def last_dispatch_info() -> dict | None:
+    """{devices: [...], shards: [...]} of this thread's last sharded
+    dispatch, or None when it ran on one device."""
+    return getattr(_dispatch_local, "info", None)
+
+
 class DeviceBatchVerifier(BatchVerifier):
     """BatchVerifier backed by `kernel_eq` on the card (the reference's
-    `TPUBatchVerifier`, crypto/crypto.go:46-54 interface). ed25519 keys go
-    through the kernel; every other key type is verified on the host
-    (`pub_key.verify_signature`), so a mixed validator set still gets one
-    complete bitmap. (sr25519 joins the kernel once the port has that
-    key type.)"""
+    `TPUBatchVerifier`, crypto/crypto.go:46-54 interface). ed25519 and
+    sr25519 keys share the equation (see ResolvedSig); every other key
+    type (secp256k1) is verified on the host (`pub_key.verify_signature`),
+    so a mixed validator set still gets one complete bitmap."""
 
     def __init__(self, device=DEFAULT_DEVICE, *, rand_bytes: RandBytes | None = None):
-        self._device = resolve(device)
+        self._device = resolve_device(device)
         self._rand_bytes = rand_bytes
         self._entries: list[ResolvedSig | None] = []
         self._host_items: list[tuple[int, PubKey, bytes, bytes]] = []
 
     def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
-        if pub_key.TYPE == "ed25519":
-            self._entries.append(resolve_ed25519(pub_key.bytes(), msg, sig))
+        if pub_key.TYPE in ("ed25519", "sr25519"):
+            self._entries.append(resolve(pub_key, msg, sig))
         else:
             self._host_items.append((len(self._entries), pub_key, msg, sig))
             self._entries.append(None)

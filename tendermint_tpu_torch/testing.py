@@ -1,7 +1,9 @@
-"""Test/bench fixtures: deterministic ed25519 validator sets and signed
-commits (the subset of tendermint_tpu/testing.py the commit path needs).
-Keys derive from the same seeds as the reference's, so both packages
-build the same validators, addresses and signatures."""
+"""Test/bench fixtures: deterministic validator sets and signed commits
+(the subset of tendermint_tpu/testing.py the commit path needs). Keys
+derive from the same seeds as the reference's, so both packages build
+the same validators and addresses, and the same signatures wherever the
+scheme is deterministic (ed25519, sr25519; secp256k1 only on the
+pure-Python path)."""
 
 from __future__ import annotations
 
@@ -23,15 +25,30 @@ def det_priv_keys(n: int, seed: bytes = b"tmtpu-test") -> list[ed25519.Ed25519Pr
 
 
 def make_validator_set(
-    n: int, power: int = 10, seed: bytes = b"tmtpu-test"
-) -> tuple[ValidatorSet, dict[bytes, ed25519.Ed25519PrivKey]]:
-    """Deterministic ed25519 validator set and its keys by address."""
-    keys = [
-        ed25519.Ed25519PrivKey(
-            hashlib.sha256(seed + b"ed25519" + i.to_bytes(4, "big")).digest()
-        )
-        for i in range(n)
-    ]
+    n: int,
+    power: int = 10,
+    seed: bytes = b"tmtpu-test",
+    key_types: tuple[str, ...] = ("ed25519",),
+) -> tuple[ValidatorSet, dict[bytes, object]]:
+    """Deterministic validator set and its keys by address; `key_types`
+    cycles over the validators in creation order (("ed25519",
+    "secp256k1") is the BASELINE config-4 mixed set)."""
+    keys: list = []
+    for i in range(n):
+        kt = key_types[i % len(key_types)]
+        secret = hashlib.sha256(seed + kt.encode() + i.to_bytes(4, "big")).digest()
+        if kt == "ed25519":
+            keys.append(ed25519.Ed25519PrivKey(secret))
+        elif kt == "secp256k1":
+            from .crypto.secp256k1 import Secp256k1PrivKey
+
+            keys.append(Secp256k1PrivKey(secret))
+        elif kt == "sr25519":
+            from .crypto.sr25519 import Sr25519PrivKey
+
+            keys.append(Sr25519PrivKey(secret))
+        else:
+            raise ValueError(f"unknown key type {kt}")
     vals = ValidatorSet([Validator(k.pub_key(), power) for k in keys])
     by_addr = {k.pub_key().address(): k for k in keys}
     return vals, by_addr

@@ -9,12 +9,17 @@ types/validation.go:25-265, and of tendermint_tpu/types/validation.py).
   verify_commit_range  — a range of commits (a block-sync window) in ONE
                          batch verifier call, light semantics per commit.
 
-Each funnels its signatures into one `create_batch_verifier` call (one
-`kernel_eq` per ≤8,192 signatures) when the key type batches and there
-are at least BATCH_VERIFY_THRESHOLD signatures, and verifies one by one
-otherwise. All take `device=` ("cuda" by default; "cpu" on request) and
-raise without a card unless the CPU was asked for. Error surface and
-`failed_index` match the reference.
+When the key type batches (ed25519, sr25519) and there are at least
+BATCH_VERIFY_THRESHOLD signatures, each funnels its signatures into one
+`_CommitVerifier`: through the running VerifyHub when one is up, else
+through `create_batch_verifier(pub_key, device)` — either way the
+adaptive verifier sends a batch of at least `batch.MIN_TPU_BATCH`
+signatures to `kernel_eq` (one launch per ≤8,192 signatures) and a
+smaller one to the host. Other sets (secp256k1, mixed) verify one by one
+through `verify_one`. All take `device=` ("cuda" by default; "cpu" on
+request; raise without a card unless the CPU was asked for) and `lane=`
+(the hub's scheduler lane). Error surface and `failed_index` match the
+reference.
 """
 
 from __future__ import annotations
@@ -29,6 +34,47 @@ BATCH_VERIFY_THRESHOLD = 2
 
 class InvalidCommitError(ValueError):
     pass
+
+
+class _CommitVerifier:
+    """Batch-verifier shim for the verify_commit* funnel: routes the
+    collected signatures through the running VerifyHub (cross-subsystem
+    micro-batching, gossip-duplicate dedup) and otherwise through
+    `create_batch_verifier(pub_key, device)`; the verdicts are the same,
+    the hub only changes where and when the batch launches. `lane` picks
+    the hub lane: block-sync / light-client callers submit as
+    "backfill". A failed hub call is retried once through the local
+    verifier, as in the reference; that path runs on the same device, so
+    a device error raises from there and nothing falls back to the
+    host."""
+
+    def __init__(self, pub_key, device, lane: str = "live"):
+        self._pub_key = pub_key
+        self._device = device
+        self._lane = lane
+        self._items: list[tuple] = []
+
+    def add(self, pub_key, msg: bytes, sig: bytes) -> None:
+        self._items.append((pub_key, msg, sig))
+
+    def verify(self) -> tuple[bool, list[bool]]:
+        from ..crypto.verify_hub import logger, running_hub
+
+        hub = running_hub()
+        if hub is not None:
+            try:
+                results = hub.verify_many(self._items, lane=self._lane)
+                return all(results) and bool(results), results
+            except Exception as e:  # noqa: BLE001 — retried below, raises there
+                logger.warning(
+                    "hub verify_many failed (%r); verifying %d sigs locally",
+                    e,
+                    len(self._items),
+                )
+        bv = crypto_batch.create_batch_verifier(self._pub_key, self._device)
+        for pk, msg, sig in self._items:
+            bv.add(pk, msg, sig)
+        return bv.verify()
 
 
 def _basic_commit_checks(
@@ -58,13 +104,14 @@ def verify_commit(
     commit: Commit,
     *,
     device=DEFAULT_DEVICE,
+    lane: str = "live",
 ) -> None:
     """Full commit verification (reference types/validation.go:25).
     Raises InvalidCommitError on failure."""
     dev = resolve(device)
     _basic_commit_checks(vals, block_id, height, commit)
     voting_power_needed = vals.total_voting_power() * 2 // 3
-    _verify(chain_id, vals, commit, voting_power_needed, True, dev)
+    _verify(chain_id, vals, commit, voting_power_needed, True, dev, lane)
 
 
 def verify_commit_light(
@@ -75,20 +122,23 @@ def verify_commit_light(
     commit: Commit,
     *,
     device=DEFAULT_DEVICE,
+    lane: str = "live",
 ) -> None:
     """Verify only the signatures for the committed block, stopping at +2/3
     (reference types/validation.go:59) — the block-sync/light-client path."""
     dev = resolve(device)
     _basic_commit_checks(vals, block_id, height, commit)
     voting_power_needed = vals.total_voting_power() * 2 // 3
-    _verify(chain_id, vals, commit, voting_power_needed, False, dev)
+    _verify(chain_id, vals, commit, voting_power_needed, False, dev, lane)
 
 
-def _verify(chain_id, vals, commit, voting_power_needed, count_all_signatures, dev):
+def _verify(chain_id, vals, commit, voting_power_needed, count_all_signatures, dev, lane):
     if _should_batch_verify(vals, commit):
-        _verify_batch(chain_id, vals, commit, voting_power_needed, count_all_signatures, dev)
+        _verify_batch(
+            chain_id, vals, commit, voting_power_needed, count_all_signatures, dev, lane
+        )
     else:
-        _verify_single(chain_id, vals, commit, voting_power_needed, count_all_signatures)
+        _verify_single(chain_id, vals, commit, voting_power_needed, count_all_signatures, lane)
 
 
 def _iter_entries(vals: ValidatorSet, commit: Commit):
@@ -104,9 +154,9 @@ def _iter_entries(vals: ValidatorSet, commit: Commit):
 
 
 def _verify_batch(
-    chain_id, vals, commit, voting_power_needed, count_all_signatures, dev
+    chain_id, vals, commit, voting_power_needed, count_all_signatures, dev, lane
 ) -> None:
-    bv = crypto_batch.create_batch_verifier(vals.validators[0].pub_key, dev)
+    bv = _CommitVerifier(vals.validators[0].pub_key, dev, lane)
     tallied = 0
     entries = []
     for idx, cs, val in _iter_entries(vals, commit):
@@ -134,14 +184,16 @@ def _verify_batch(
 
 
 def _verify_single(
-    chain_id, vals, commit, voting_power_needed, count_all_signatures
+    chain_id, vals, commit, voting_power_needed, count_all_signatures, lane
 ) -> None:
+    from ..crypto.verify_hub import verify_one
+
     tallied = 0
     for idx, cs, val in _iter_entries(vals, commit):
         if not count_all_signatures and not cs.is_commit():
             continue
-        if not val.pub_key.verify_signature(
-            commit.vote_sign_bytes(chain_id, idx), cs.signature
+        if not verify_one(
+            val.pub_key, commit.vote_sign_bytes(chain_id, idx), cs.signature, lane=lane
         ):
             raise InvalidCommitError(f"invalid signature at index {idx}")
         if cs.is_commit():
@@ -159,6 +211,7 @@ def verify_commit_range(
     entries: list[tuple[ValidatorSet, BlockID, int, Commit]],
     *,
     device=DEFAULT_DEVICE,
+    lane: str = "backfill",
 ) -> None:
     """Verify a RANGE of commits — e.g. a block-sync window — in ONE batch
     verifier call, so hundreds of heights' signatures form one `kernel_eq`
@@ -173,18 +226,22 @@ def verify_commit_range(
     dev = resolve(device)
     if not entries:
         return
-    # created lazily, from the first batchable entry: a set whose key type
-    # does not batch verifies through the individual path below
+    # created lazily, from the first batchable entry: a mixed ed25519 +
+    # secp256k1 set verifies through the individual path below, and
+    # keying the verifier off validators[0] of a set whose first key
+    # does not batch would fail
     bv = None
     added_any = False
     for ei, (vals, block_id, height, commit) in enumerate(entries):
         try:
             _basic_commit_checks(vals, block_id, height, commit)
             if not _should_batch_verify(vals, commit):
-                verify_commit_light(chain_id, vals, block_id, height, commit, device=dev)
+                verify_commit_light(
+                    chain_id, vals, block_id, height, commit, device=dev, lane=lane
+                )
                 continue
             if bv is None:
-                bv = crypto_batch.create_batch_verifier(vals.validators[0].pub_key, dev)
+                bv = _CommitVerifier(vals.validators[0].pub_key, dev, lane)
             voting_power_needed = vals.total_voting_power() * 2 // 3
             tallied = 0
             for idx, cs, val in _iter_entries(vals, commit):
@@ -211,7 +268,9 @@ def verify_commit_range(
     # locate the offending commit: per-commit fallback
     for ei, (vals, block_id, height, commit) in enumerate(entries):
         try:
-            verify_commit_light(chain_id, vals, block_id, height, commit, device=dev)
+            verify_commit_light(
+                chain_id, vals, block_id, height, commit, device=dev, lane=lane
+            )
         except InvalidCommitError as e:
             e.failed_index = ei
             raise

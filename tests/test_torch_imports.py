@@ -124,3 +124,76 @@ def test_resolve_refuses_unknown_devices():
     assert resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve("meta")
+
+
+FUNNEL_MODULES = [
+    "tendermint_tpu_torch.config",
+    "tendermint_tpu_torch.crypto.batch",
+    "tendermint_tpu_torch.crypto.secp256k1",
+    "tendermint_tpu_torch.crypto.softcrypto",
+    "tendermint_tpu_torch.crypto.sr25519",
+    "tendermint_tpu_torch.crypto.verify_hub",
+    "tendermint_tpu_torch.libs.clock",
+    "tendermint_tpu_torch.libs.metrics",
+    "tendermint_tpu_torch.libs.trace",
+]
+
+
+def test_scan_and_blocked_import_cover_the_funnel_modules():
+    """The AST scan and the jax-blocked import above walk every module of
+    the package; the verification funnel's modules are among them."""
+    assert set(FUNNEL_MODULES) <= set(_port_modules())
+
+
+def _funnel_entry_points():
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto import batch, verify_hub
+    from tendermint_tpu_torch.types import validation
+
+    def commit_path(key_types, entry):
+        vals, keys = tt.make_validator_set(2, key_types=key_types)
+        bid = tt.make_block_id(b"y")
+        commit = tt.make_commit("c", 1, 0, bid, vals, keys)
+        if entry == "range":
+            return lambda **kw: validation.verify_commit_range("c", [(vals, bid, 1, commit)], **kw)
+        return lambda **kw: validation.verify_commit_light("c", vals, bid, 1, commit, **kw)
+
+    def hub(**kw):
+        verify_hub.acquire_hub(**kw)
+        verify_hub.release_hub()
+
+    sr_pub = tt.make_validator_set(1, key_types=("sr25519",))[0].validators[0].pub_key
+    return {
+        "AdaptiveBatchVerifier": lambda **kw: batch.AdaptiveBatchVerifier(**kw),
+        "VerifyHub": lambda **kw: verify_hub.VerifyHub(**kw),
+        "acquire_hub": hub,
+        "create_batch_verifier[sr25519]": lambda **kw: batch.create_batch_verifier(sr_pub, **kw),
+        "verify_commit_light[secp256k1]": commit_path(("secp256k1",), "light"),
+        "verify_commit_light[sr25519]": commit_path(("sr25519",), "light"),
+        "verify_commit_range[mixed]": commit_path(("ed25519", "secp256k1"), "range"),
+        "verify_commit_range[sr25519]": commit_path(("sr25519",), "range"),
+    }
+
+
+FUNNEL_ENTRY_POINTS = [
+    "AdaptiveBatchVerifier", "VerifyHub", "acquire_hub", "create_batch_verifier[sr25519]",
+    "verify_commit_light[secp256k1]", "verify_commit_light[sr25519]",
+    "verify_commit_range[mixed]", "verify_commit_range[sr25519]",
+]
+
+
+@pytest.mark.parametrize("name", FUNNEL_ENTRY_POINTS)
+def test_funnel_entry_points_raise_without_cuda_unless_cpu_requested(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    from tendermint_tpu_torch.crypto import verify_hub
+
+    points = _funnel_entry_points()
+    assert sorted(points) == FUNNEL_ENTRY_POINTS
+    fn = points[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(device="cuda")
+    assert verify_hub.running_hub() is None  # a refused hub never starts
+    fn(device="cpu")  # the host, when asked for, works
