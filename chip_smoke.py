@@ -10,12 +10,13 @@ failure exits non-zero, nothing is caught and carried past):
   1. build the CUDA kernels from csrc/ (nvcc, sm_90a), print the seconds
      and each kernel's register/spill report;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the shapes the main path gives it (B1 at 8,192, 64 and 1 elements,
-     B3 at 8,192 and 512 chains of 15 steps, with an all-511 chain, a
-     y == x chain and signed limbs among them), with torch.equal
-     (integer arithmetic: the tolerance is zero); time
-     each kernel alone (torch.profiler, three repeats), through its
-     wrapper (CUDA events, three repeats), and its plain version;
+     sizes the main path gives it (B1 at 8,192, 64 and 1 elements, B2
+     at 8,319, B3 at 8,192 and 256 chains of 15 steps, with an all-511
+     chain, a y == x chain and signed limbs among them; phase 11 checks
+     that the main path gives these sizes), with torch.equal (integer
+     arithmetic: the tolerance is zero); time each kernel alone
+     (torch.profiler, three repeats), through its wrapper (CUDA events,
+     three repeats), and its plain version;
   3. verify_commit_range over 54 commits of a 150-validator set (one
      8,192-signature bucket, 150 unique keys) with the launch counts set
      to 0 just before and read just after; then verify_batch_eq over every
@@ -36,8 +37,11 @@ failure exits non-zero, nothing is caught and carried past):
      (ristretto decoding and the Merlin transcript);
   8. the mixed ed25519 + secp256k1 set of BASELINE config 4 (150
      validators, 4 commits) through verify_commit_light inside a running
-     VerifyHub: no error, every verdict as the host's, and a tampered
-     secp256k1 signature raises; prints the wall and the dispatch routes;
+     VerifyHub — a hub and host check that launches no kernel: every
+     signature verifies on its own on the host (route "cpu"), each
+     commit verifies exactly its light-semantics tally of signatures,
+     every verdict is the host's, and a tampered secp256k1 signature
+     raises; prints the wall and the dispatch routes;
   9. the adaptive cutoff measured on the card (`batch._measure_cutoff`):
      the device call at 64 signatures, the host rate, the measured and
      the clamped MIN_TPU_BATCH;
@@ -46,18 +50,28 @@ failure exits non-zero, nothing is caught and carried past):
      must be "cuda" and B1–B3 must launch; the same range again must come
      wholly from the verdict cache with no launch; then, at the default
      max_batch (512), the split of dispatches between "cuda" and "cpu"
-     (printed, not asserted). Prints the hub's stats, wall and sigs/s
-     beside phase 3's direct call; `running_hub()` is None after release.
+     (printed, not asserted). The hub's max_batch must be the one asked
+     for. Prints the hub's stats, wall and sigs/s beside phase 3's
+     direct call; `running_hub()` is None after release;
+ 11. the shape audit: every input shape that the ed25519 and sr25519
+     ranges (phases 3 and 7) and their tampered twins (phases 4 and 7:
+     the per-commit search and the attribution through kernel_sig) gave
+     B1, B2 and B3 is held against the plain version with torch.equal,
+     on the inputs the path gave and on worst-case inputs of the same
+     shapes; phase 2's sizes must be sizes the main path gives; the
+     largest size of each kernel on each of the two ranges gets a timed
+     `kernels` row of its own.
 
 Each path's launch counts are set to 0 just before it and read just
 after. Prints the card's name and power limit, `breakdown`, `sr25519`,
-`mixed`, `cutoff`, `hub`, `slice` and `kernels` JSON lines, and last
+`mixed`, `cutoff`, `hub`, `shapes`, `slice` and `kernels` JSON lines, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
 package. Build output goes to build/torch_ext/.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -145,78 +159,122 @@ def _device_ms(fn, reps: int, name: str | None = None) -> float | None:
     return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
 
 
+def _limbs(gen, dev, shape, lo=0, hi=512):
+    import torch
+
+    return torch.randint(lo, hi, tuple(shape), generator=gen, dtype=torch.int32).to(dev)
+
+
+def _field_inputs(gen, dev, shape):
+    """A B1/B2 operand of `shape` (..., 32): the first half of its rows in
+    [0, 512) with row 0 at 511 in every limb, the rest in [-511, 512)."""
+    import torch
+
+    rows = 1
+    for d in shape[:-1]:
+        rows *= d
+    half = (rows + 1) // 2
+    t = torch.cat([_limbs(gen, dev, (half, 32)), _limbs(gen, dev, (rows - half, 32), -511)])
+    t[0] = 511
+    return t.reshape(shape)
+
+
+def _scan_inputs(gen, dev, chains, steps):
+    """B3's operands: limbs in [0, 512), chain 0 at 511 in every limb
+    (where the true 8p and the reference's zero part ways), chain 1 with
+    y == x, and the upper half of the chains in [-300, 300)."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import curve
+
+    half = chains // 2
+    first = [torch.cat([_limbs(gen, dev, (half, 32)),
+                        _limbs(gen, dev, (chains - half, 32), -300, 300)])
+             for _ in range(4)]
+    rest = [torch.cat([_limbs(gen, dev, (steps, half, 32)),
+                       _limbs(gen, dev, (steps, chains - half, 32), -300, 300)], 1)
+            for _ in range(4)]
+    for t in first:
+        t[0] = 511
+    for t in rest:
+        t[:, 0] = 511
+    if chains > 1:
+        first[1][1] = first[0][1]
+    return curve.Point(*first), curve.CachedPoint(*rest)
+
+
+def _as_tensor(out):
+    import torch
+
+    return torch.stack(list(out)) if isinstance(out, tuple) else out
+
+
+def _hold(kernel, what, run, plain) -> int:
+    """Run `kernel`'s wrapper and its plain version; fail unless they are
+    equal (integer arithmetic: the tolerance is zero). Returns the
+    largest absolute difference (0)."""
+    import torch
+
+    got, want = _as_tensor(run()), _as_tensor(plain())
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{kernel.name} ({what}): kernel disagrees with its plain version")
+    return int((got - want).abs().max().item())
+
+
+def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps) -> dict:
+    """A `kernels` row: held against the plain version, then timed."""
+    err = _hold(kernel, f"m={m}", run, plain)
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    # the kernel alone on the card (profiler), three repeats
+    repeats = [_device_ms(run, reps, name=f"{kernel.name}_kernel") for _ in range(3)]
+    wrappers = [_time_ms(run, reps) for _ in range(3)]
+    measured = sorted(r for r in repeats if r is not None)
+    ms = measured[len(measured) // 2] if measured else None
+    wrapper_ms = sorted(wrappers)[1]
+    plain_ms = _time_ms(plain, max(1, reps // 5))
+    return {
+        "name": kernel.name,
+        "m": m,
+        "route": "cuda",
+        "source": f"tendermint_tpu_torch/crypto/cuda/csrc/{kernel.source}.cu",
+        "replaces": kernel.replaces,
+        "max_abs_err": err,
+        "match": True,
+        # else the CUDA-event time per wrapper call, which includes the
+        # host's launch gap
+        "ms": ms if ms is not None else wrapper_ms,
+        "ms_source": "profiler" if ms is not None else "cuda_events",
+        "ms_repeats": repeats,
+        "share_of_bound": bound_ms / (ms if ms is not None else wrapper_ms),
+        # CUDA events per call through the wrapper: what a caller pays
+        "wrapper_ms": wrapper_ms,
+        "wrapper_ms_repeats": wrappers,
+        "plain_ms": plain_ms,
+        "plain_device_ms": _device_ms(plain, 1),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes these
+    }
+
+
 def check_kernels(dev) -> list[dict]:
     """Phase 2: each kernel against its plain version on the card."""
     import torch
 
-    from tendermint_tpu_torch.crypto.cuda import _build, curve, msm
+    from tendermint_tpu_torch.crypto.cuda import _build, msm
     from tendermint_tpu_torch.crypto.cuda import field as F
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
 
     def limbs(*shape):
-        return torch.randint(0, 512, shape + (32,), generator=gen, dtype=torch.int32).to(dev)
-
-    def scan_inputs(chains, steps):
-        """B3's operands: limbs in [0, 512), chain 0 at 511 in every limb
-        (where the true 8p and the reference's zero part ways), chain 1
-        with y == x, and the upper half of the chains in [-300, 300)."""
-        def signed(*shape):
-            return torch.randint(-300, 300, shape + (32,), generator=gen,
-                                 dtype=torch.int32).to(dev)
-
-        half = chains // 2
-        first = [torch.cat([limbs(half), signed(chains - half)]) for _ in range(4)]
-        rest = [torch.cat([limbs(steps, half), signed(steps, chains - half)], 1)
-                for _ in range(4)]
-        for t in first:
-            t[0] = 511
-        for t in rest:
-            t[:, 0] = 511
-        first[1][1] = first[0][1]
-        return curve.Point(*first), curve.CachedPoint(*rest)
+        return _limbs(gen, dev, shape + (32,))
 
     rows = []
 
-    def record(kernel, m, run, plain, n_bytes, n_ops, reps):
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        got_t = torch.stack(list(got)) if isinstance(got, tuple) else got
-        want_t = torch.stack(list(want)) if isinstance(want, tuple) else want
-        if not torch.equal(got_t, want_t):
-            raise AssertionError(f"{kernel.name} (m={m}): kernel disagrees with its plain version")
-        err = int((got_t - want_t).abs().max().item())
-        bound_ms, bound_by = _bound(n_bytes, n_ops)
-        # the kernel alone on the card (profiler), three repeats
-        repeats = [_device_ms(run, reps, name=f"{kernel.name}_kernel") for _ in range(3)]
-        wrappers = [_time_ms(run, reps) for _ in range(3)]
-        measured = sorted(r for r in repeats if r is not None)
-        ms = measured[len(measured) // 2] if measured else None
-        wrapper_ms = sorted(wrappers)[1]
-        plain_ms = _time_ms(plain, max(1, reps // 5))
-        rows.append({
-            "name": kernel.name,
-            "m": m,
-            "route": "cuda",
-            "source": f"tendermint_tpu_torch/crypto/cuda/csrc/{kernel.source}.cu",
-            "replaces": kernel.replaces,
-            "max_abs_err": err,
-            "match": True,
-            # else the CUDA-event time per wrapper call, which includes the
-            # host's launch gap
-            "ms": ms if ms is not None else wrapper_ms,
-            "ms_source": "profiler" if ms is not None else "cuda_events",
-            "ms_repeats": repeats,
-            "share_of_bound": bound_ms / (ms if ms is not None else wrapper_ms),
-            # CUDA events per call through the wrapper: what a caller pays
-            "wrapper_ms": wrapper_ms,
-            "wrapper_ms_repeats": wrappers,
-            "plain_ms": plain_ms,
-            "plain_device_ms": _device_ms(plain, 1),
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,  # no single PyTorch call computes these
-        })
+    def record(*args, **kw):
+        rows.append(_kernel_row(*args, **kw))
 
     # B1 at 8,192 elements (the R-side width), row 0 the all-511 worst
     # case; and at 1 and 64 elements, where most main-path launches land
@@ -226,17 +284,17 @@ def check_kernels(dev) -> list[dict]:
         record(F.FE_MUL, m, lambda a=a, b=b: F.mul(a, b), lambda a=a, b=b: F._mul_plain(a, b),
                3 * LIMB_BYTES * m, FE_MUL_OPS * m, reps=reps)
 
-    # B2 at 8,447 elements: 255 unique keys + 8,192 R points, one decompress
-    z = limbs(8447)
+    # B2 at 8,319 elements: the 8,192 R points and 127 keys, one decompress
+    z = limbs(8319)
     z[0] = 511
-    record(F.FE_POW22523, 8447, lambda: F.pow22523(z), lambda: F._pow22523_plain(z),
-           2 * LIMB_BYTES * 8447, POW22523_OPS * 8447, reps=20)
+    record(F.FE_POW22523, 8319, lambda: F.pow22523(z), lambda: F._pow22523_plain(z),
+           2 * LIMB_BYTES * 8319, POW22523_OPS * 8319, reps=20)
 
     # B3 at the R-side MSM (16 windows x g = 512 blocks = 8,192 chains of
-    # 15 cached additions) and at the A side (512 chains)
+    # 15 cached additions) and at the A side (16 windows x 16 blocks)
     steps = msm._BLOCK - 1
-    for chains, reps in ((16 * 512, 20), (512, 100)):
-        first, rest = scan_inputs(chains, steps)
+    for chains, reps in ((16 * 512, 20), (16 * 16, 100)):
+        first, rest = _scan_inputs(gen, dev, chains, steps)
         record(msm.SCAN_BLOCKS, chains, lambda f=first, r=rest: msm.scan_blocks(f, r),
                lambda f=first, r=rest: msm._scan_blocks_plain(f, r),
                chains * LIMB_BYTES * 4 * (1 + steps + steps + 1),
@@ -244,6 +302,128 @@ def check_kernels(dev) -> list[dict]:
     for k in _build.KERNELS.values():
         k.launches = 0
     return rows
+
+
+class ShapeAudit:
+    """The shapes each kernel wrapper is given on a path: `recording(path)`
+    wraps field.mul (B1), field.pow22523 (B2) and msm.scan_blocks (B3)
+    while a path runs, and keeps, per kernel and input shapes, the first
+    inputs given at those shapes and the calls on each path. The wrappers
+    themselves and their launch counts are untouched."""
+
+    def __init__(self):
+        #: (kernel name, input shapes) -> {"inputs": [...], "calls": {path: n}}
+        self.seen: dict[tuple, dict] = {}
+
+    @contextlib.contextmanager
+    def recording(self, path: str):
+        from tendermint_tpu_torch.crypto.cuda import field as F
+        from tendermint_tpu_torch.crypto.cuda import msm
+
+        real_mul, real_pow, real_scan = F.mul, F.pow22523, msm.scan_blocks
+
+        def note(kernel, tensors):
+            key = (kernel.name, tuple(tuple(t.shape) for t in tensors))
+            rec = self.seen.get(key)
+            if rec is None:
+                rec = self.seen[key] = {"inputs": [t.clone() for t in tensors], "calls": {}}
+            rec["calls"][path] = rec["calls"].get(path, 0) + 1
+
+        def mul(a, b):
+            note(F.FE_MUL, (a, b))
+            return real_mul(a, b)
+
+        def pow22523(z):
+            note(F.FE_POW22523, (z,))
+            return real_pow(z)
+
+        def scan_blocks(first, rest):
+            note(msm.SCAN_BLOCKS, (*first, *rest))
+            return real_scan(first, rest)
+
+        F.mul, F.pow22523, msm.scan_blocks = mul, pow22523, scan_blocks
+        try:
+            yield
+        finally:
+            F.mul, F.pow22523, msm.scan_blocks = real_mul, real_pow, real_scan
+
+
+def _kernel_case(name: str, inputs: list, gen, dev) -> tuple:
+    """(kernel, m, run, plain, bytes moved, operations) for one call of
+    kernel `name` on `inputs`, or, with `gen`, on worst-case inputs of
+    the same shapes: row 0 at 511 in every limb, equal operands (row 1
+    of a multiply, chain 1 of a scan with y == x) and signed limbs."""
+    from tendermint_tpu_torch.crypto.cuda import curve, msm
+    from tendermint_tpu_torch.crypto.cuda import field as F
+
+    if name == F.FE_MUL.name:
+        a, b = inputs
+        if gen is not None:
+            a, b = _field_inputs(gen, dev, a.shape), _field_inputs(gen, dev, b.shape)
+            if a.shape == b.shape and a.numel() >= 2 * F.LIMBS:
+                b.view(-1, F.LIMBS)[1] = a.view(-1, F.LIMBS)[1]
+        m = max(a.numel(), b.numel()) // F.LIMBS
+        return (F.FE_MUL, m, lambda: F.mul(a, b), lambda: F._mul_plain(a, b),
+                4 * (a.numel() + b.numel()) + LIMB_BYTES * m, FE_MUL_OPS * m)
+    if name == F.FE_POW22523.name:
+        (z,) = inputs
+        if gen is not None:
+            z = _field_inputs(gen, dev, z.shape)
+        m = z.numel() // F.LIMBS
+        return (F.FE_POW22523, m, lambda: F.pow22523(z), lambda: F._pow22523_plain(z),
+                2 * LIMB_BYTES * m, POW22523_OPS * m)
+    chains, steps = inputs[0].shape[0], inputs[4].shape[0]
+    if gen is not None:
+        first, rest = _scan_inputs(gen, dev, chains, steps)
+    else:
+        first, rest = curve.Point(*inputs[:4]), curve.CachedPoint(*inputs[4:])
+    return (msm.SCAN_BLOCKS, chains, lambda: msm.scan_blocks(first, rest),
+            lambda: msm._scan_blocks_plain(first, rest),
+            chains * LIMB_BYTES * 4 * (1 + steps + steps + 1), chains * steps * ADD_CACHED_OPS)
+
+
+#: repeats of a timed `kernels` row added by the shape audit
+_AUDIT_REPS = {"fe_mul": 200, "fe_pow22523": 20, "scan_blocks": 50}
+
+
+def audit_shapes(dev, audit: ShapeAudit, rows: list[dict], timed_paths: tuple) -> dict:
+    """Phase 11: hold each kernel against its plain version at every input
+    shape a recorded path gave it, on the inputs the path gave it there
+    and on worst-case inputs of those shapes (torch.equal: the tolerance
+    is zero). Fail unless phase 2 timed each kernel at sizes the first of
+    `timed_paths` (the main path) gave it. Then add a timed `kernels` row
+    for the largest size of each kernel on each of `timed_paths` that
+    has no row yet. Returns the shapes held, by kernel."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    held: dict[str, list] = {}
+    sizes: dict[tuple, dict] = {}  # (path, kernel) -> {m: inputs}
+    for (name, shapes), rec in sorted(audit.seen.items(), key=lambda kv: kv[0]):
+        for source, g in (("path", None), ("worst case", gen)):
+            kernel, m, run, plain, _b, _o = _kernel_case(name, rec["inputs"], g, dev)
+            _hold(kernel, f"shapes {list(shapes)}, {source} inputs", run, plain)
+        held.setdefault(name, []).append({"shapes": [list(x) for x in shapes],
+                                          "m": m, "calls": rec["calls"]})
+        for path in rec["calls"]:
+            sizes.setdefault((path, name), {}).setdefault(m, rec["inputs"])
+    main = timed_paths[0]
+    for row in rows:
+        if row["m"] not in sizes.get((main, row["name"]), {}):
+            raise AssertionError(f"{row['name']} timed at m={row['m']}, a size {main} "
+                                 f"never gives it: {sorted(sizes.get((main, row['name']), {}))}")
+    timed = {(r["name"], r["m"]) for r in rows}
+    for path in timed_paths:
+        for (p, name), by_m in sorted(sizes.items()):
+            m = max(by_m)
+            if p != path or (name, m) in timed:
+                continue
+            kernel, m, run, plain, n_bytes, n_ops = _kernel_case(name, by_m[m], gen, dev)
+            row = _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps=_AUDIT_REPS[name])
+            row["shape_of"] = path
+            rows.append(row)
+            timed.add((name, m))
+    return held
 
 
 def build_commits(n_vals: int, n_commits: int, key_types=("ed25519",)):
@@ -294,8 +474,10 @@ def tamper(entries, ci: int, vi: int):
     return out
 
 
-def drive_main_path(dev, entries) -> dict:
-    """Phase 3: the port's main path, with the launch counts around it."""
+def drive_main_path(dev, entries, audit: ShapeAudit) -> dict:
+    """Phase 3: the port's main path, with the launch counts around it;
+    its first call's kernel shapes go into `audit` (a dictionary lookup
+    per wrapper call, and a copy of the inputs at each new shape)."""
     import torch
 
     from tendermint_tpu_torch.crypto.cuda import _build, verify as V
@@ -305,7 +487,8 @@ def drive_main_path(dev, entries) -> dict:
     for k in _build.KERNELS.values():
         k.launches = 0
     t0 = time.perf_counter()
-    verify_commit_range(CHAIN_ID, entries, device=dev)
+    with audit.recording(ED_MAIN):
+        verify_commit_range(CHAIN_ID, entries, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -535,8 +718,16 @@ def _expect_failure(fn, commit: int, val: int) -> None:
         raise AssertionError("a tampered signature verified")
 
 
-def drive_sr25519(dev) -> dict:
-    """Phase 7: an sr25519 range through the same three kernels."""
+ED_MAIN = "verify_commit_range[ed25519]"
+ED_TAMPERED = "verify_commit_range[ed25519, tampered]"
+SR_MAIN = "verify_commit_range[sr25519]"
+SR_TAMPERED = "verify_commit_range[sr25519, tampered]"
+
+
+def drive_sr25519(dev, audit: ShapeAudit) -> dict:
+    """Phase 7: an sr25519 range through the same three kernels; the
+    kernel shapes of the range and of the tampered range go into
+    `audit`."""
     from tendermint_tpu_torch.crypto import sr25519
     from tendermint_tpu_torch.crypto.cuda import verify as V
     from tendermint_tpu_torch.types.validation import verify_commit_range
@@ -548,7 +739,8 @@ def drive_sr25519(dev) -> dict:
 
     _launch_counts(reset=True)
     t0 = time.perf_counter()
-    verify_commit_range(CHAIN_ID, entries, device=dev)
+    with audit.recording(SR_MAIN):
+        verify_commit_range(CHAIN_ID, entries, device=dev)
     _sync(dev)
     wall = time.perf_counter() - t0
     launches = _launch_counts()
@@ -560,11 +752,12 @@ def drive_sr25519(dev) -> dict:
     resolve_s = time.perf_counter() - t0
 
     bad = tamper(entries, SR_TAMPER_COMMIT, SR_TAMPER_VAL)
-    _expect_failure(lambda: verify_commit_range(CHAIN_ID, bad, device=dev),
-                    SR_TAMPER_COMMIT, SR_TAMPER_VAL)
     bad_items = range_items(bad)
     bad_pos = SR_TAMPER_COMMIT * (len(bad_items) // len(bad)) + SR_TAMPER_VAL
-    bitmap = V.verify_resolved([V.resolve_sr25519(*it) for it in bad_items], dev)
+    with audit.recording(SR_TAMPERED):
+        _expect_failure(lambda: verify_commit_range(CHAIN_ID, bad, device=dev),
+                        SR_TAMPER_COMMIT, SR_TAMPER_VAL)
+        bitmap = V.verify_resolved([V.resolve_sr25519(*it) for it in bad_items], dev)
     if bitmap[bad_pos] or int(bitmap.sum()) != len(bad_items) - 1:
         raise AssertionError("sr25519 bitmap does not single out the tampered signature")
     rng = random.Random(SEED + 7)
@@ -618,12 +811,20 @@ def drive_mixed(dev) -> dict:
     secp = next(i for i, v in enumerate(vals.validators) if v.pub_key.TYPE == "secp256k1")
     bad = tamper(entries, 1, secp)
     trace.RECORDER.clear()
-    verify_hub.acquire_hub(device=dev)
+    hub = verify_hub.acquire_hub(device=dev)
+
+    def requests():
+        st = hub.stats()
+        return st["submitted"] + st["cache_hits"] + st["coalesced"]
+
     try:
         _launch_counts(reset=True)
+        per_commit = []
         t0 = time.perf_counter()
         for v, bid, h, commit in entries:
+            before = requests()
             verify_commit_light(CHAIN_ID, v, bid, h, commit, device=dev)
+            per_commit.append(requests() - before)
         wall = time.perf_counter() - t0
         launches = _launch_counts()
         _v, bid, h, commit = bad[1]
@@ -636,6 +837,13 @@ def drive_mixed(dev) -> dict:
         raise AssertionError("release_hub left a running hub")
     routes = _dispatch_routes()
     sigs = len(range_items(entries))
+    # light semantics: each commit's block votes in index order up to the
+    # first tally above 2/3, each verified on its own on the host
+    tally = [len(range_items([e])) for e in entries]
+    if per_commit != tally:
+        raise AssertionError(f"signatures verified per commit {per_commit}, light tally {tally}")
+    if set(routes) != {"cpu"} or any(launches.values()):
+        raise AssertionError(f"mixed set left the host: routes {set(routes)}, {launches}")
     return {
         "entry": "verify_commit_light",
         "key_types": types,
@@ -646,6 +854,8 @@ def drive_mixed(dev) -> dict:
         "sigs_per_s": sigs / wall,
         "dispatches": {r: routes.count(r) for r in sorted(set(routes))},
         "hub_submitted": stats["submitted"],
+        "host_verified_per_commit": per_commit,
+        "light_tally_per_commit": tally,
         "launches": launches,
     }
 
@@ -691,12 +901,18 @@ def drive_hub(dev, entries, direct: dict) -> dict:
         return passes
 
     first, cached = run("max_batch", max_batch=HUB_MAX_BATCH)
+    if first["max_batch"] != HUB_MAX_BATCH:
+        raise AssertionError(f"hub runs at max_batch {first['max_batch']}, not {HUB_MAX_BATCH}")
     if not first["dispatches"] or set(first["dispatches"]) != {"cuda"}:
         raise AssertionError(f"hub dispatches off the card: {first['dispatches']}")
     _require_all_launched("verify_commit_range through the hub", first["launches"])
     if cached["cache_hits"] != n_range or any(cached["launches"].values()) or cached["dispatches"]:
         raise AssertionError(f"second pass not served from the cache: {cached}")
     default, default_again = run("default")
+    from tendermint_tpu_torch.config import VerifyHubConfig
+
+    if default["max_batch"] != VerifyHubConfig().max_batch:
+        raise AssertionError(f"default hub runs at max_batch {default['max_batch']}")
     return {
         "entry": "verify_commit_range (lane backfill) through acquire_hub",
         "sigs": n_range,
@@ -739,19 +955,21 @@ def main() -> int:
     t0 = time.perf_counter()
     entries = build_commits(N_VALS, N_COMMITS)
     print(f"signed {N_VALS * N_COMMITS} votes in {time.perf_counter() - t0:.1f} s")
-    run = drive_main_path(dev, entries)
+    audit = ShapeAudit()
+    run = drive_main_path(dev, entries, audit)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")
-    drive_tampered(dev, entries)
+    with audit.recording(ED_TAMPERED):
+        drive_tampered(dev, entries)
     bd = breakdown(dev, entries)
     print(json.dumps({"breakdown": bd}))
     for row in rows:
         # the kernel's summed device time inside one main-path kernel_eq
         row["main_path_device_ms"] = bd["ported_kernels_device_ms"][row["name"]]
 
-    sr = drive_sr25519(dev)
+    sr = drive_sr25519(dev, audit)
     print(json.dumps({"sr25519": sr}))
     mixed = drive_mixed(dev)
     print(json.dumps({"mixed": mixed}))
@@ -775,8 +993,17 @@ def main() -> int:
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
+
+    held = audit_shapes(dev, audit, rows, (ED_MAIN, SR_MAIN))
+    for name in _build.KERNELS:
+        paths = {p for rec in held.get(name, []) for p in rec["calls"]}
+        if paths != {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED}:
+            raise AssertionError(f"{name}: shapes recorded on {sorted(paths)} only")
+    print(json.dumps({"shapes": held}))
     for row in rows:
+        row["launches"] = run["launches"][row["name"]]
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
+        row.setdefault("main_path_device_ms", bd["ported_kernels_device_ms"][row["name"]])
 
     print(json.dumps({"slice": run["slice"]}))
     print(json.dumps({"kernels": rows}))

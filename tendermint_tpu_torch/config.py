@@ -10,10 +10,11 @@ from dataclasses import dataclass
 @dataclass
 class VerifyHubConfig:
     """VerifyHub — the node-wide micro-batching signature-verification
-    scheduler (crypto/verify_hub.py). The same knobs come from the
-    TMTPU_VERIFYHUB_* env vars, which win over these values. The
-    reference's `enabled`, `mesh_scale` and `verifyd_sock` wait for the
-    node, the mesh and the verifyd sidecar, which are not ported."""
+    scheduler (crypto/verify_hub.py): the defaults of its constructor.
+    The reference's TMTPU_VERIFYHUB_* env overrides wait for the node
+    config that reads them; its `enabled`, `mesh_scale` and
+    `verifyd_sock` wait for the node, the mesh and the verifyd sidecar,
+    which are not ported."""
 
     max_batch: int = 512  # dispatch target (sigs queued)
     window_ms: float = 2.0  # micro-batch window ceiling (adaptive below it)

@@ -160,9 +160,6 @@ class AdaptiveBatchVerifier(BatchVerifier):
         #: where the last verify() ran ("cuda" or "cpu"); the VerifyHub
         #: stamps it on its dispatch spans
         self.last_route = "cpu"
-        #: {devices, shards} when the last verify ran sharded; None on
-        #: one device and on the host route
-        self.last_dispatch = None
 
     def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
         if pub_key.TYPE not in _EDWARDS:
@@ -173,7 +170,6 @@ class AdaptiveBatchVerifier(BatchVerifier):
 
     def verify(self) -> tuple[bool, list[bool]]:
         items = self._items
-        self.last_dispatch = None
         if items and len(items) >= MIN_TPU_BATCH:
             try:
                 out = self._run(self._make_device_verifier(), items)
@@ -181,9 +177,6 @@ class AdaptiveBatchVerifier(BatchVerifier):
                 record_resilience("device_error_batches")
                 record_resilience("device_error_sigs", len(items))
                 raise
-            from .cuda.verify import last_dispatch_info
-
-            self.last_dispatch = last_dispatch_info()
             self.last_route = "cuda"
         else:
             out = self._run(CPUBatchVerifier(), items)

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import hashlib
 import os
-import threading
 from typing import Callable
 
 import numpy as np
@@ -336,19 +335,6 @@ def verify_batch_eq(
         dev,
         rand_bytes,
     )
-
-
-#: per-thread record of the last dispatch this thread ran, for the
-#: VerifyHub's hub.dispatch spans. The reference fills it on sharded
-#: (multi-device) dispatches only; the port dispatches on one device, so
-#: it stays None until the mesh is ported.
-_dispatch_local = threading.local()
-
-
-def last_dispatch_info() -> dict | None:
-    """{devices: [...], shards: [...]} of this thread's last sharded
-    dispatch, or None when it ran on one device."""
-    return getattr(_dispatch_local, "info", None)
 
 
 class DeviceBatchVerifier(BatchVerifier):

@@ -46,12 +46,14 @@ Differences from the reference, by design:
   * a batch whose verifier raises fails its futures, and `verify_one`
     passes the error on: no helper re-verifies on the host, so a device
     error is never hidden;
+  * `max_batch`, `window_ms` and `cache_size` come from the
+    constructor, with `VerifyHubConfig`'s defaults; the reference's
+    TMTPU_VERIFYHUB_* env overrides wait for the node config that
+    reads them;
   * not ported yet: the verifyd remote route (with crypto/verifyd.py),
-    mesh scaling (the mesh, `_mesh_n` stays 1), `verify_aggregate` and
-    the BLS partition (with BLS), and per-tenant packing stats (verifyd).
-
-Env knobs (override the constructor's values): TMTPU_VERIFYHUB_BATCH,
-TMTPU_VERIFYHUB_WINDOW_MS, TMTPU_VERIFYHUB_CACHE.
+    mesh scaling (the batch capacity is `max_batch` on one device),
+    `verify_aggregate` and the BLS partition (with BLS), and per-tenant
+    packing stats (verifyd).
 """
 
 
@@ -59,7 +61,6 @@ from __future__ import annotations
 
 import asyncio
 import logging
-import os
 import threading
 import time
 from collections import OrderedDict
@@ -142,35 +143,22 @@ class VerifyHub:
         adaptive: bool = True,
         name: str = "verify-hub",
     ):
-        # env wins over explicit kwargs (the documented contract: the env
-        # knobs override per-node config); fallback defaults come from
-        # VerifyHubConfig — one source of truth
+        # a knob left as None takes VerifyHubConfig's default
         from ..config import VerifyHubConfig
 
         defaults = VerifyHubConfig()
-
-        def _knob(env_name, explicit, default, cast):
-            v = os.environ.get(env_name)
-            if v:
-                return cast(v)
-            return default if explicit is None else explicit
-
-        max_batch = _knob("TMTPU_VERIFYHUB_BATCH", max_batch, defaults.max_batch, int)
-        window_ms = _knob(
-            "TMTPU_VERIFYHUB_WINDOW_MS", window_ms, defaults.window_ms, float
-        )
-        cache_size = _knob(
-            "TMTPU_VERIFYHUB_CACHE", cache_size, defaults.cache_size, int
-        )
+        if max_batch is None:
+            max_batch = defaults.max_batch
+        if window_ms is None:
+            window_ms = defaults.window_ms
+        if cache_size is None:
+            cache_size = defaults.cache_size
         self.device = resolve(device)
         self.name = name
         self.max_batch = max(1, max_batch)
         self.window_s = max(0.0, window_ms) / 1e3
         self.cache_size = max(0, cache_size)
         self.adaptive = adaptive
-        #: active devices the batch capacity scales by: one until the
-        #: mesh is ported
-        self._mesh_n = 1
 
         self._cv = threading.Condition()
         # two FIFO lanes; dispatch packs live first, then backfill
@@ -424,8 +412,6 @@ class VerifyHub:
                 s["dispatched_sigs"] / s["dispatches"] if s["dispatches"] else 0.0
             )
             s["ewma_occupancy"] = self._ewma_occupancy
-            s["mesh_devices"] = float(self._mesh_n)
-            s["effective_max_batch"] = float(self._effective_max())
             uptime = max(time.monotonic() - self._started_at, 1e-9)
             s["dispatch_rate"] = s["dispatches"] / uptime
             requests = s["submitted"] + s["cache_hits"] + s["coalesced"]
@@ -433,10 +419,6 @@ class VerifyHub:
         return s
 
     # -- scheduling internals --------------------------------------------
-
-    def _effective_max(self) -> int:
-        """Batch capacity: one configured max_batch per active device."""
-        return self.max_batch * self._mesh_n
 
     def _window(self) -> float:
         """Adaptive micro-batch window: scale the configured ceiling by
@@ -449,7 +431,7 @@ class VerifyHub:
             return 0.0
         # linear ramp: full window once recent batches average >= 1/8 of
         # a device batch (past that, latency is already amortized)
-        frac = min(1.0, (occ - 1.0) / max(self._effective_max() / 8.0, 1.0))
+        frac = min(1.0, (occ - 1.0) / max(self.max_batch / 8.0, 1.0))
         return self.window_s * frac
 
     def _queued(self) -> int:
@@ -478,7 +460,7 @@ class VerifyHub:
                     while (
                         self._running
                         and not self._urgent
-                        and self._queued() < self._effective_max()
+                        and self._queued() < self.max_batch
                     ):
                         remaining = deadline - time.monotonic()
                         if remaining <= 0:
@@ -523,7 +505,7 @@ class VerifyHub:
     def _pack_batch(self) -> list[_Pending]:
         """Pop up to the batch capacity, live lane FIRST — catch-up
         traffic can never displace the hot path. Caller holds _cv."""
-        cap = self._effective_max()
+        cap = self.max_batch
         batch: list[_Pending] = []
         for lane in LANES:
             q = self._queues[lane]
@@ -563,12 +545,9 @@ class VerifyHub:
             # with where THIS batch ran (the thread-local route that
             # _verify_batch stashed)
             route = getattr(self._route_local, "route", "cpu")
-            disp = getattr(self._route_local, "dispatch", None)
             t1 = time.monotonic()
             trace.emit(
-                "hub", "dispatch",
-                duration_s=t1 - t0, sigs=len(batch), route=route,
-                **({"devices": disp["devices"], "shards": disp["shards"]} if disp else {}),
+                "hub", "dispatch", duration_s=t1 - t0, sigs=len(batch), route=route
             )
             for p in batch:
                 if p.traces:
@@ -599,7 +578,6 @@ class VerifyHub:
         # where this batch ran, for the dispatch/execute spans: set per
         # worker thread, and "cpu" on the host-side paths
         self._route_local.route = "cpu"
-        self._route_local.dispatch = None
         if idxs:
             with self._cv:
                 self._stats["scheme_edwards_sigs"] += len(idxs)
@@ -613,7 +591,6 @@ class VerifyHub:
                 bv.add(p.pub_key, p.msg, p.sig)
             _ok, bitmap = bv.verify()
             self._route_local.route = bv.last_route
-            self._route_local.dispatch = bv.last_dispatch
             for i, good in zip(idxs, bitmap):
                 results[i] = bool(good)
         return results

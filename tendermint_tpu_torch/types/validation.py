@@ -43,10 +43,10 @@ class _CommitVerifier:
     `create_batch_verifier(pub_key, device)`; the verdicts are the same,
     the hub only changes where and when the batch launches. `lane` picks
     the hub lane: block-sync / light-client callers submit as
-    "backfill". A failed hub call is retried once through the local
-    verifier, as in the reference; that path runs on the same device, so
-    a device error raises from there and nothing falls back to the
-    host."""
+    "backfill". A failed hub call raises: unlike the reference, nothing
+    verifies the signatures again locally, because a local verifier
+    sends a batch below `batch.MIN_TPU_BATCH` (one commit's signatures,
+    say) to the host and would answer for a batch the card failed."""
 
     def __init__(self, pub_key, device, lane: str = "live"):
         self._pub_key = pub_key
@@ -58,19 +58,12 @@ class _CommitVerifier:
         self._items.append((pub_key, msg, sig))
 
     def verify(self) -> tuple[bool, list[bool]]:
-        from ..crypto.verify_hub import logger, running_hub
+        from ..crypto.verify_hub import running_hub
 
         hub = running_hub()
         if hub is not None:
-            try:
-                results = hub.verify_many(self._items, lane=self._lane)
-                return all(results) and bool(results), results
-            except Exception as e:  # noqa: BLE001 — retried below, raises there
-                logger.warning(
-                    "hub verify_many failed (%r); verifying %d sigs locally",
-                    e,
-                    len(self._items),
-                )
+            results = hub.verify_many(self._items, lane=self._lane)
+            return all(results) and bool(results), results
         bv = crypto_batch.create_batch_verifier(self._pub_key, self._device)
         for pk, msg, sig in self._items:
             bv.add(pk, msg, sig)

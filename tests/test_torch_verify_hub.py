@@ -282,18 +282,19 @@ def test_trace_spans_of_a_request(hub, monkeypatch):
     assert trace.start() is None
 
 
+class _Crashing(pbatch.CPUBatchVerifier):
+    def verify(self):
+        raise RuntimeError("simulated kernel failure")
+
+
 def test_device_error_propagates_through_hub(monkeypatch):
     """A failing device batch fails its futures; verify_many, verify_one
-    and the commit funnel raise (the funnel retries once through the
-    local verifier, on the same device, and raises there)."""
-
-    class Crashing(pbatch.CPUBatchVerifier):
-        def verify(self):
-            raise RuntimeError("simulated kernel failure")
+    and the commit funnel raise (the funnel does not verify again
+    locally)."""
 
     monkeypatch.setattr(pbatch, "MIN_TPU_BATCH", 1)
     monkeypatch.setattr(
-        pbatch.AdaptiveBatchVerifier, "_make_device_verifier", lambda self: Crashing()
+        pbatch.AdaptiveBatchVerifier, "_make_device_verifier", lambda self: _Crashing()
     )
     vals, keys = tt.make_validator_set(4)
     bid = tt.make_block_id(b"err")
@@ -310,6 +311,72 @@ def test_device_error_propagates_through_hub(monkeypatch):
     assert vh.running_hub() is None
     with pytest.raises(RuntimeError, match="simulated"):
         val.verify_commit_light(CHAIN_ID, vals, bid, 1, commit, device="cpu")
+
+
+def test_device_error_in_a_coalesced_hub_batch_raises_at_the_cutoff(monkeypatch):
+    """Two concurrent commit verifications, each below the cutoff (4
+    signatures against MIN_TPU_BATCH 8), share one hub batch of 8 that
+    goes to the card and fails there: both raise. A local retry of
+    either commit would land below the cutoff, on the host, and return
+    a verdict for signatures the card failed to verify."""
+    import threading
+
+    monkeypatch.setattr(pbatch, "MIN_TPU_BATCH", 8)
+    monkeypatch.setattr(
+        pbatch.AdaptiveBatchVerifier, "_make_device_verifier", lambda self: _Crashing()
+    )
+    vals, keys = tt.make_validator_set(4)
+    commits = []
+    for height in (1, 2):
+        bid = tt.make_block_id(b"coalesced-%d" % height)
+        commits.append((bid, height, tt.make_commit(CHAIN_ID, height, 0, bid, vals, keys)))
+    h = vh.acquire_hub(device="cpu", max_batch=64, window_ms=1.0)
+    outcomes = []
+    try:
+        # hold both in-flight slots so the dispatcher cannot pack until
+        # both groups are queued: they leave as ONE batch of 8
+        h._slots.acquire()
+        h._slots.acquire()
+
+        def run(bid, height, commit):
+            try:
+                val.verify_commit(CHAIN_ID, vals, bid, height, commit, device="cpu")
+                outcomes.append("verified")
+            except RuntimeError as e:
+                outcomes.append(str(e))
+
+        threads = [threading.Thread(target=run, args=c) for c in commits]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 30.0
+        while h.stats()["submitted"] < 8 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        h._slots.release()
+        h._slots.release()
+        for t in threads:
+            t.join(30.0)
+        stats = h.stats()
+    finally:
+        vh.release_hub()
+    assert outcomes == ["simulated kernel failure"] * 2
+    assert stats["dispatches"] == 1 and stats["dispatched_sigs"] == 8
+    assert stats["verify_errors"] == 1
+
+
+def test_hub_knobs_come_from_the_constructor(monkeypatch):
+    """The reference's TMTPU_VERIFYHUB_* env overrides are not read: the
+    constructor's values hold, and VerifyHubConfig fills what it leaves
+    out."""
+    from tendermint_tpu_torch.config import VerifyHubConfig
+
+    for name in ("BATCH", "WINDOW_MS", "CACHE"):
+        monkeypatch.setenv(f"TMTPU_VERIFYHUB_{name}", "3")
+    h = VerifyHub(device="cpu", max_batch=8192, window_ms=5.0, cache_size=16)
+    assert (h.max_batch, h.window_s, h.cache_size) == (8192, 0.005, 16)
+    d, cfg = VerifyHub(device="cpu"), VerifyHubConfig()
+    assert (d.max_batch, d.window_s, d.cache_size) == (
+        cfg.max_batch, cfg.window_ms / 1e3, cfg.cache_size
+    )
 
 
 def test_verify_one_passes_hub_errors_on(monkeypatch):
