@@ -53,19 +53,41 @@ failure exits non-zero, nothing is caught and carried past):
      (printed, not asserted). The hub's max_batch must be the one asked
      for. Prints the hub's stats, wall and sigs/s beside phase 3's
      direct call; `running_hub()` is None after release;
+ 12. block-sync (run after phase 10, before the audit): bench.py's
+     block-sync bench (BASELINE config 3) on the port — a 1,024-block
+     kvstore chain of the 150-validator set, built through the port's
+     executor on the host (device="cpu": set-up, its seconds printed),
+     replayed by a fresh node's BlockSyncReactor on the card, window 108,
+     one in-process peer serving blocks through a Channel, no hub. Each
+     range goes to verify_commit_range once (a full window is 10,908
+     signatures: two 8,192-signature `kernel_eq` chunks); every range must
+     route as the router's measured cutoff says ("cuda" from
+     MIN_TPU_BATCH, which is at most 2,048), B1–B3 must launch, every
+     block but the tip must be applied, and the final app hash, height
+     and validators hash must be the source chain's. Prints blocks/s,
+     each range's blocks, signatures, route and wall, the launches, and
+     the ranges' verification wall against `CPUBatchVerifier(parallel=
+     True)` over the same signatures. Then a tampered pass: the commit
+     for height 100 carries a flipped signature bit, served first as the
+     last block of a range (whose batch fails on the card: kernel_eq,
+     then kernel_sig), then, after the punishment, inside two windows;
+     the reactor must punish that height twice with a fatal PeerError
+     naming the peer, request it again, and apply nothing from it on;
  11. the shape audit: every input shape that the ed25519 and sr25519
-     ranges (phases 3 and 7) and their tampered twins (phases 4 and 7:
-     the per-commit search and the attribution through kernel_sig) gave
-     B1, B2 and B3 is held against the plain version with torch.equal,
-     on the inputs the path gave and on worst-case inputs of the same
-     shapes; phase 2's sizes must be sizes the main path gives; the
-     largest size of each kernel on each of the two ranges gets a timed
-     `kernels` row of its own.
+     ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
+     per-commit search and the attribution through kernel_sig) and the
+     block-sync replay and its tampered pass (phase 12, two-chunk ranges
+     included) gave B1, B2 and B3 is held against the plain version with
+     torch.equal, on the inputs the path gave and on worst-case inputs of
+     the same shapes; phase 2's sizes must be sizes the main path gives;
+     the largest size of each kernel on the ed25519, sr25519 and
+     block-sync paths gets a timed `kernels` row of its own.
 
 Each path's launch counts are set to 0 just before it and read just
-after. Prints the card's name and power limit, `breakdown`, `sr25519`,
-`mixed`, `cutoff`, `hub`, `shapes`, `slice` and `kernels` JSON lines, and last
-{"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
+after (the block-sync reactor verifies in a worker thread; its launches
+count too). Prints the card's name and power limit, `breakdown`,
+`sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `shapes`, `slice` and
+`kernels` JSON lines, and last {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
 package. Build output goes to build/torch_ext/.
 """
 
@@ -88,6 +110,17 @@ TAMPER_COMMIT, TAMPER_VAL = 20, 5
 SR_TAMPER_COMMIT, SR_TAMPER_VAL = 3, 7
 HUB_MAX_BATCH = 8192
 SEED = 20261016
+# phase 12, bench.py's block-sync bench (BASELINE config 3): 150
+# validators of power 10, a 1,024-block kvstore chain, window 108
+N_BS_BLOCKS = 1024
+BS_WINDOW = 108
+BS_CHAIN_ID = "bs-bench"
+# the tampered pass: the commit for BS_TAMPER_HEIGHT carries one flipped
+# signature bit; the peer serves up to the block that carries it, then,
+# once the reactor has punished the height, two windows
+BS_TAMPER_HEIGHT, BS_TAMPER_VAL = 100, 5
+BS_TAMPER_TOP = 2 * BS_WINDOW + 1
+BS_TIMEOUT_S = 600
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # CUDA-core float32 rate (an FMA counted as two operations). All three
@@ -445,7 +478,7 @@ def all_items(entries):
     ]
 
 
-def range_items(entries):
+def range_items(entries, chain_id=CHAIN_ID):
     """The (pub, msg, sig) triples verify_commit_range batches: per commit,
     block votes in index order up to the first tally above 2/3."""
     out = []
@@ -455,7 +488,7 @@ def range_items(entries):
             if not cs.is_commit():
                 continue
             val = vals.validators[i]
-            out.append((val.pub_key.bytes(), commit.vote_sign_bytes(CHAIN_ID, i), cs.signature))
+            out.append((val.pub_key.bytes(), commit.vote_sign_bytes(chain_id, i), cs.signature))
             tallied += val.voting_power
             if tallied > need:
                 break
@@ -922,6 +955,338 @@ def drive_hub(dev, entries, direct: dict) -> dict:
     }
 
 
+BS_MAIN = "blocksync[replay]"
+BS_TAMPERED = "blocksync[tampered]"
+
+
+def build_chain(n_vals: int, n_blocks: int) -> dict:
+    """The source chain of bench.py's block-sync bench, built through the
+    port's own executor on the host (device="cpu": set-up, not the
+    measured path). Returns its genesis, block store, the state after
+    height n_blocks - 1 (where a replay ends) and the seconds taken."""
+    import asyncio
+
+    from tendermint_tpu_torch import testing as tt
+
+    keys = tt.det_priv_keys(n_vals)
+    genesis = tt.make_genesis(keys, BS_CHAIN_ID)
+    states = {}
+
+    def on_height(h, _block, _parts, _commit, state):
+        if h == n_blocks - 1:
+            states["end"] = state
+
+    t0 = time.perf_counter()
+    bstore, _sstore, _conns, _state = asyncio.run(
+        tt.build_kvstore_chain(genesis, keys, n_blocks, device="cpu", on_height=on_height))
+    return {"genesis": genesis, "store": bstore, "end_state": states["end"],
+            "build_s": time.perf_counter() - t0}
+
+
+class RangeLog:
+    """Each `verify_commit_range` call of the block-sync reactor: its
+    blocks, the signatures it batches (light semantics: block votes in
+    index order up to the first tally above 2/3), the routes of the
+    batches it ran ("cuda" or "cpu", from `AdaptiveBatchVerifier`), its
+    wall seconds, and its (pub, msg, sig) triples for the host floor.
+    `recording()` wraps the reactor's name for the function and the
+    router's `verify` while a replay runs; neither changes what they do.
+    The signatures are counted and rebuilt when the recording ends,
+    outside the replay's wall."""
+
+    def __init__(self):
+        self.ranges: list[dict] = []
+        self.items: list[list] = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        from tendermint_tpu_torch.blocksync import reactor as R
+        from tendermint_tpu_torch.crypto import batch
+
+        real_range, real_verify = R.verify_commit_range, batch.AdaptiveBatchVerifier.verify
+        routes: list[tuple[int, str]] = []
+
+        def verify(bv):
+            out = real_verify(bv)
+            routes.append((len(bv._items), bv.last_route))
+            return out
+
+        def verify_commit_range(chain_id, entries, **kw):
+            before = len(routes)
+            raised = None
+            t0 = time.perf_counter()
+            try:
+                return real_range(chain_id, entries, **kw)
+            except Exception as e:
+                raised = f"{type(e).__name__}: {e}"
+                raise
+            finally:
+                calls.append((chain_id, entries))
+                self.ranges.append({
+                    "first_height": entries[0][2],
+                    "blocks": len(entries),
+                    "route": routes[before][1] if len(routes) > before else None,
+                    "batches": routes[before:],
+                    "wall_s": time.perf_counter() - t0,
+                    "raised": raised,
+                })
+
+        calls: list[tuple] = []
+        R.verify_commit_range, batch.AdaptiveBatchVerifier.verify = verify_commit_range, verify
+        try:
+            yield self
+        finally:
+            R.verify_commit_range, batch.AdaptiveBatchVerifier.verify = real_range, real_verify
+            for (chain_id, entries), rec in zip(calls, self.ranges):
+                self.items.append(range_items(entries, chain_id))
+                rec["sigs"] = len(self.items[-1])
+
+
+async def _replay(dev, genesis, serve_block, top: int, *, window: int, on_start=None,
+                  top_after_punish: int | None = None, stop_after_punishments: int = 0,
+                  timeout: float = BS_TIMEOUT_S) -> dict:
+    """Block-sync a fresh node through the port's BlockSyncReactor on
+    `dev`, fed by one in-process peer ("peer0") that answers status
+    requests with `top` (with `top_after_punish` once the reactor has
+    punished a height) and block requests up to it with
+    `serve_block(height)`, through a Channel (bench.py's
+    `_bench_blocksync_async`). No hub runs. Ends when the reactor is
+    synced or, with `stop_after_punishments`, once it has punished that
+    many times. `on_start()` runs just before the reactor starts."""
+    import asyncio
+
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApp
+    from tendermint_tpu_torch.blocksync import BLOCKSYNC_CHANNEL
+    from tendermint_tpu_torch.blocksync import messages as bsm
+    from tendermint_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from tendermint_tpu_torch.consensus.replay import Handshaker
+    from tendermint_tpu_torch.p2p.peermanager import PeerStatus, PeerUpdate
+    from tendermint_tpu_torch.p2p.router import Channel
+    from tendermint_tpu_torch.p2p.types import Envelope
+    from tendermint_tpu_torch.proxy import AppConns
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.state.state import state_from_genesis
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.store.blockstore import BlockStore
+    from tendermint_tpu_torch.store.db import MemDB
+
+    conns = AppConns.local(KVStoreApp())
+    bstore, sstore = BlockStore(MemDB()), StateStore(MemDB())
+    state = await Handshaker(sstore, state_from_genesis(genesis), bstore, genesis,
+                             device=dev).handshake(conns)
+    sstore.save(state)
+    ex = BlockExecutor(sstore, conns.consensus, block_store=bstore, device=dev)
+    ch = Channel(BLOCKSYNC_CHANNEL, "blocksync", 5, bsm.encode_message, bsm.decode_message)
+    peer_q: asyncio.Queue = asyncio.Queue()
+    reactor = BlockSyncReactor(state, ex, bstore, ch, peer_q, window=window, active=True,
+                               device=dev)
+    requests: dict[int, int] = {}
+    punished: list[int] = []
+    errors: list = []
+    done = asyncio.Event()
+    real_punish = reactor._punish
+
+    async def punish(height, provider, next_provider, err):
+        punished.append(height)
+        await real_punish(height, provider, next_provider, err)
+        if stop_after_punishments and len(punished) >= stop_after_punishments:
+            done.set()
+
+    reactor._punish = punish
+
+    async def serve():
+        while True:
+            msg = (await ch.out_q.get()).message
+            served = top_after_punish if punished and top_after_punish else top
+            if isinstance(msg, bsm.StatusRequest):
+                reply = bsm.StatusResponse(served, 1)
+            elif isinstance(msg, bsm.BlockRequest) and msg.height <= served:
+                requests[msg.height] = requests.get(msg.height, 0) + 1
+                reply = bsm.BlockResponse(serve_block(msg.height))
+            else:
+                continue
+            await ch.in_q.put(Envelope(BLOCKSYNC_CHANNEL, reply, from_="peer0"))
+
+    async def watch_errors():
+        while True:
+            errors.append(await ch.err_q.get())
+
+    async def synced():
+        await reactor.synced.wait()
+        done.set()
+
+    loop = asyncio.get_running_loop()
+    tasks = [loop.create_task(f()) for f in (serve, watch_errors, synced)]
+    await peer_q.put(PeerUpdate("peer0", PeerStatus.UP))
+    if on_start is not None:
+        on_start()
+    t0 = time.perf_counter()
+    await reactor.start()
+    try:
+        await asyncio.wait_for(done.wait(), timeout=timeout)
+        wall = time.perf_counter() - t0
+    finally:
+        await reactor.stop()
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        await conns.stop()
+    return {"reactor": reactor, "state": reactor.state, "store": bstore, "wall_s": wall,
+            "punished": punished, "errors": errors, "requests": requests,
+            "synced": reactor.synced.is_set()}
+
+
+def drive_blocksync(dev, audit: ShapeAudit) -> dict:
+    """Phase 12: bench.py's block-sync bench on the port — replay a
+    prebuilt kvstore chain through BlockSyncReactor on `dev`, one range
+    verification per window; then a short tampered pass."""
+    import asyncio
+    from dataclasses import replace
+
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto.batch import CPUBatchVerifier
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PubKey
+    from tendermint_tpu_torch.types.block import Block
+
+    chain = build_chain(N_VALS, N_BS_BLOCKS)
+    print(f"blocksync: built the {N_BS_BLOCKS}-block source chain in {chain['build_s']:.1f} s")
+    src, genesis = chain["store"], chain["genesis"]
+    log = RangeLog()
+    with log.recording(), audit.recording(BS_MAIN):
+        run = asyncio.run(_replay(dev, genesis, src.load_block, src.height(), window=BS_WINDOW,
+                                  on_start=lambda: _launch_counts(reset=True)))
+        launches = _launch_counts()
+    _sync(dev)
+    if not run["synced"]:
+        raise AssertionError("block-sync replay did not finish")
+    state, end = run["state"], chain["end_state"]
+    applied = run["reactor"].metrics["blocks_applied"]
+    if state.last_block_height != N_BS_BLOCKS - 1 or applied != N_BS_BLOCKS - 1 \
+            or run["store"].height() < N_BS_BLOCKS - 1:
+        raise AssertionError(f"replay ended at height {state.last_block_height}, "
+                             f"{applied} blocks applied")
+    if (state.app_hash, state.last_block_height, state.validators.hash()) != \
+            (end.app_hash, end.last_block_height, end.validators.hash()):
+        raise AssertionError("replayed state differs from the source chain's")
+    if run["punished"] or run["errors"]:
+        raise AssertionError(f"an honest replay punished {run['punished']}: {run['errors']}")
+    cutoff = batch.MIN_TPU_BATCH
+    for r in log.ranges:
+        if r["raised"]:
+            raise AssertionError(f"an honest range raised: {r}")
+        want = "cuda" if r["sigs"] >= cutoff else "cpu"
+        if r["route"] != want or any(route != r["route"] for _n, route in r["batches"]):
+            raise AssertionError(f"range of {r['sigs']} signatures routed {r['batches']}, "
+                                 f"not {want} (cutoff {cutoff})")
+    if not any(r["route"] == "cuda" for r in log.ranges):
+        raise AssertionError("no range reached the card")
+    _require_all_launched("block-sync replay", launches)
+
+    # the host floor over the same ranges' signatures, range by range
+    floor = []
+    for items in log.items:
+        bv = CPUBatchVerifier(parallel=True)
+        for pub, msg, sig in items:
+            bv.add(Ed25519PubKey(pub), msg, sig)
+        t0 = time.perf_counter()
+        ok, _ = bv.verify()
+        floor.append(time.perf_counter() - t0)
+        if not ok:
+            raise AssertionError("host verification rejected a replayed signature")
+    on_card = [i for i, r in enumerate(log.ranges) if r["route"] == "cuda"]
+    sigs = sum(r["sigs"] for r in log.ranges)
+
+    # the tampered pass: the commit for BS_TAMPER_HEIGHT (block
+    # BS_TAMPER_HEIGHT + 1's LastCommit) with one bit flipped. The peer
+    # first serves up to that block, so it ends whichever range holds
+    # the commit: the range's structural checks pass and its batch
+    # fails on the signature (on the card from MIN_TPU_BATCH signatures:
+    # kernel_eq, then kernel_sig). After the punishment it serves two
+    # windows: the re-fetched bad block is then mid-range, which fails
+    # the part-set check (its LastCommit is part of the block), and the
+    # reactor must punish the height again without applying past it.
+    good = src.load_block(BS_TAMPER_HEIGHT + 1)
+    lc = good.last_commit
+    sigs_t = list(lc.signatures)
+    s = sigs_t[BS_TAMPER_VAL].signature
+    sigs_t[BS_TAMPER_VAL] = replace(sigs_t[BS_TAMPER_VAL],
+                                    signature=s[:40] + bytes([s[40] ^ 1]) + s[41:])
+    bad = Block(good.header, good.txs, good.evidence, replace(lc, signatures=tuple(sigs_t)))
+
+    def serve_tampered(h):
+        return bad if h == BS_TAMPER_HEIGHT + 1 else src.load_block(h)
+
+    tlog = RangeLog()
+    with tlog.recording(), audit.recording(BS_TAMPERED):
+        trun = asyncio.run(_replay(dev, genesis, serve_tampered, BS_TAMPER_HEIGHT + 1,
+                                   window=BS_WINDOW, top_after_punish=BS_TAMPER_TOP,
+                                   stop_after_punishments=2, timeout=120,
+                                   on_start=lambda: _launch_counts(reset=True)))
+        tlaunches = _launch_counts()
+    if trun["punished"] != [BS_TAMPER_HEIGHT] * 2:
+        raise AssertionError(f"tampered pass punished {trun['punished']}")
+    failing = next(r for r in tlog.ranges if r["first_height"] <= BS_TAMPER_HEIGHT
+                   < r["first_height"] + r["blocks"])
+    if failing["sigs"] >= cutoff:
+        if failing["route"] != "cuda":
+            raise AssertionError(f"the range with the bad signature routed {failing}")
+        _require_all_launched("tampered block-sync range", tlaunches)
+    first = trun["errors"][0] if trun["errors"] else None
+    if first is None or first.node_id != "peer0" or not first.fatal:
+        raise AssertionError(f"no fatal PeerError named the provider: {trun['errors']}")
+    if trun["state"].last_block_height != BS_TAMPER_HEIGHT - 1 \
+            or trun["store"].height() > BS_TAMPER_HEIGHT - 1:
+        raise AssertionError(f"tampered pass applied past {BS_TAMPER_HEIGHT - 1}: "
+                             f"{trun['state'].last_block_height}")
+    if trun["requests"].get(BS_TAMPER_HEIGHT, 0) < 2:
+        raise AssertionError("the punished height was not requested again")
+    return {
+        "entry": "BlockSyncReactor (bench.py _bench_blocksync_async), device cuda, no hub",
+        "validators": N_VALS,
+        "source_blocks": N_BS_BLOCKS,
+        "window": BS_WINDOW,
+        "chain_build_s": chain["build_s"],
+        "blocks_applied": applied,
+        "wall_s": run["wall_s"],
+        "blocks_per_s": applied / run["wall_s"],
+        "sigs_verified": sigs,
+        "sigs_verified_reactor_metric": run["reactor"].metrics["sigs_verified"],
+        "min_tpu_batch": cutoff,
+        "ranges": [{k: r[k] for k in ("first_height", "blocks", "sigs", "route", "wall_s")}
+                   for r in log.ranges],
+        "two_chunk_ranges": sum(1 for r in log.ranges if r["sigs"] > 8192),
+        "launches": launches,
+        "range_verify_wall_s": sum(r["wall_s"] for r in log.ranges),
+        "cpu_floor": {
+            "entry": "CPUBatchVerifier(parallel=True), range by range",
+            "sigs": sigs,
+            "cores": os.cpu_count(),
+            "wall_s": sum(floor),
+        },
+        "on_card": {
+            "ranges": len(on_card),
+            "sigs": sum(log.ranges[i]["sigs"] for i in on_card),
+            "range_verify_wall_s": sum(log.ranges[i]["wall_s"] for i in on_card),
+            "cpu_floor_wall_s": sum(floor[i] for i in on_card),
+        },
+        "tampered": {
+            "blocks_served": [BS_TAMPER_HEIGHT + 1, BS_TAMPER_TOP],
+            "tampered_height": BS_TAMPER_HEIGHT,
+            "punished": trun["punished"],
+            "peer_errors": [[e.node_id, e.fatal] for e in trun["errors"]],
+            "last_applied": trun["state"].last_block_height,
+            "requests_of_punished_height": trun["requests"].get(BS_TAMPER_HEIGHT, 0),
+            # the second punishment's range holds the tampered block
+            # mid-range and fails its structural checks before any batch
+            # runs: route None
+            "ranges": [{k: r[k] for k in ("first_height", "blocks", "sigs", "route", "raised")}
+                       for r in tlog.ranges],
+            "launches": tlaunches,
+            "wall_s": trun["wall_s"],
+        },
+    }
+
+
 def main() -> int:
     import torch
 
@@ -982,6 +1347,8 @@ def main() -> int:
     print(json.dumps({"cutoff": cutoff}))
     hub = drive_hub(dev, entries, run["slice"])
     print(json.dumps({"hub": hub}))
+    bs = drive_blocksync(dev, audit)
+    print(json.dumps({"blocksync": bs}))
 
     by_path = {
         "verify_commit_range[ed25519]": run["launches"],
@@ -990,14 +1357,16 @@ def main() -> int:
         "verify_commit_range[hub, max_batch 8192]": hub["passes"][0]["launches"],
         "verify_commit_range[hub, cached]": hub["passes"][1]["launches"],
         "verify_commit_range[hub, max_batch 512]": hub["passes"][2]["launches"],
+        "blocksync[replay of the 1,024-block chain]": bs["launches"],
+        "blocksync[tampered pass]": bs["tampered"]["launches"],
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
 
-    held = audit_shapes(dev, audit, rows, (ED_MAIN, SR_MAIN))
+    held = audit_shapes(dev, audit, rows, (ED_MAIN, SR_MAIN, BS_MAIN))
     for name in _build.KERNELS:
         paths = {p for rec in held.get(name, []) for p in rec["calls"]}
-        if paths != {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED}:
+        if not {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED, BS_MAIN} <= paths:
             raise AssertionError(f"{name}: shapes recorded on {sorted(paths)} only")
     print(json.dumps({"shapes": held}))
     for row in rows:

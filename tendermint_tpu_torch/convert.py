@@ -10,6 +10,14 @@ inputs:
   limbs / point       (..., 32) limb arrays and 4-coordinate points
   to_numpy / point_to_numpy   back to numpy
   validator_set       [(pubkey bytes, power), ...] → ValidatorSet
+
+and the chain's state from the reference's types to the port's, through
+the wire encodings both packages share (the reference's bytes decoded by
+the port), so a chain built by one package replays in the other:
+
+  block, commit, valset, state   Block, Commit, ValidatorSet, State
+  genesis                        GenesisDoc (through its JSON)
+  block_store                    every block and commit of a BlockStore
 """
 
 from __future__ import annotations
@@ -63,3 +71,50 @@ def validator_set(pairs):
     from .types.validator_set import Validator, ValidatorSet
 
     return ValidatorSet([Validator(Ed25519PubKey(pk), power) for pk, power in pairs])
+
+
+def block(ref_block):
+    """The reference's Block → the port's (decoded from its encoding)."""
+    from .types.block import Block
+
+    return Block.decode(ref_block.encode())
+
+
+def commit(ref_commit):
+    from .types.block import Commit
+
+    return Commit.decode(ref_commit.encode())
+
+
+def valset(ref_vals):
+    """The reference's ValidatorSet → the port's, proposer priorities and
+    the current proposer included."""
+    from .types.validator_set import ValidatorSet
+
+    return ValidatorSet.decode(ref_vals.encode())
+
+
+def state(ref_state):
+    from .state.state import State
+
+    return State.decode(ref_state.encode())
+
+
+def genesis(ref_genesis):
+    from .types.genesis import GenesisDoc
+
+    return GenesisDoc.from_json(ref_genesis.to_json())
+
+
+def block_store(ref_store, db=None):
+    """Every block of the reference's BlockStore, with its part set and
+    its seen commit, saved into a new port BlockStore (on `db`, a MemDB
+    by default)."""
+    from .store.blockstore import BlockStore
+    from .store.db import MemDB
+
+    out = BlockStore(db if db is not None else MemDB())
+    for h in range(ref_store.base(), ref_store.height() + 1):
+        b = block(ref_store.load_block(h))
+        out.save_block(b, b.make_part_set(), commit(ref_store.load_seen_commit(h)))
+    return out

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 KERNELS: dict[str, "Kernel"] = {}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: what the last build printed (ptxas register/spill report), per source
 BUILD_LOG: dict[str, str] = {}
@@ -100,7 +101,9 @@ def build_all() -> dict[str, Path]:
 class Kernel:
     """One CUDA launcher: its C symbol in `lib<source>.so`, its ctypes
     argument types, and `launches`, the number of times it was launched
-    (a plain integer; reset it by assignment)."""
+    (a plain integer; reset it by assignment). Launches from any thread
+    count (the block-sync reactor verifies its ranges in a worker
+    thread), under one lock so none is lost."""
 
     def __init__(self, name: str, source: str, argtypes: list, replaces: str):
         self.name = name
@@ -125,7 +128,8 @@ class Kernel:
         err = fn(*args)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: error {err}")
-        self.launches += 1
+        with _count_lock:
+            self.launches += 1
 
 
 def stream_args(t) -> tuple[int, int]:

@@ -1,15 +1,17 @@
-"""Test/bench fixtures: deterministic validator sets and signed commits
-(the subset of tendermint_tpu/testing.py the commit path needs). Keys
-derive from the same seeds as the reference's, so both packages build
-the same validators and addresses, and the same signatures wherever the
-scheme is deterministic (ed25519, sr25519; secp256k1 only on the
-pure-Python path)."""
+"""Test/bench fixtures: deterministic validator sets, signed commits and
+kvstore chains (the subset of tendermint_tpu/testing.py the commit and
+block-sync paths need, and the chain build of bench.py's block-sync
+bench). Keys derive from the same seeds as the reference's, so both
+packages build the same validators and addresses, and the same
+signatures wherever the scheme is deterministic (ed25519, sr25519;
+secp256k1 only on the pure-Python path)."""
 
 from __future__ import annotations
 
 import hashlib
 
 from .crypto import ed25519
+from .device import DEFAULT_DEVICE
 from .crypto.hashes import sha256
 from .types.block import NIL_BLOCK_ID, BlockID, Commit, CommitSig, PartSetHeader
 from .types.canonical import vote_sign_bytes
@@ -87,3 +89,70 @@ def make_commit(
         else:
             sigs.append(CommitSig.for_block(val.address, ts, sig))
     return Commit(height, round_, block_id, tuple(sigs))
+
+
+def make_genesis(
+    keys, chain_id: str, *, power: int = 10, genesis_time_ns: int = 1_700_000_000_000_000_000
+):
+    """A genesis doc with one validator of `power` per key, named v0, v1, …"""
+    from .types.genesis import GenesisDoc, GenesisValidator
+
+    return GenesisDoc(
+        chain_id=chain_id,
+        initial_height=1,
+        genesis_time_ns=genesis_time_ns,
+        validators=[GenesisValidator(k.pub_key(), power, f"v{i}") for i, k in enumerate(keys)],
+    )
+
+
+async def build_kvstore_chain(
+    genesis,
+    keys,
+    n_blocks: int,
+    *,
+    mempool=None,
+    device=DEFAULT_DEVICE,
+    on_height=None,
+):
+    """Build an `n_blocks` kvstore chain through the real executor, as
+    bench.py's block-sync bench builds its source chain: an ABCI
+    handshake (InitChain), then per height a proposal from the current
+    proposer with the txs `mempool` reaps (empty blocks without one),
+    `apply_block` (which verifies the block's LastCommit on `device`),
+    and a commit signed by every validator of the set that voted, its
+    timestamps one nanosecond after the block's. `keys` are the signers'
+    private keys (every key that is ever in the set). `on_height(h,
+    block, parts, commit, state)` is called after each height. Returns
+    (block_store, state_store, app_conns, state)."""
+    from .abci.kvstore import KVStoreApp
+    from .consensus.replay import Handshaker
+    from .proxy import AppConns
+    from .state.execution import BlockExecutor
+    from .state.state import state_from_genesis
+    from .state.store import StateStore
+    from .store.blockstore import BlockStore
+    from .store.db import MemDB
+
+    by_addr = {k.pub_key().address(): k for k in keys}
+    conns = AppConns.local(KVStoreApp())
+    bstore, sstore = BlockStore(MemDB()), StateStore(MemDB())
+    state = await Handshaker(
+        sstore, state_from_genesis(genesis), bstore, genesis, device=device
+    ).handshake(conns)
+    sstore.save(state)
+    ex = BlockExecutor(sstore, conns.consensus, mempool=mempool, block_store=bstore, device=device)
+    commit = None
+    for h in range(1, n_blocks + 1):
+        block, parts = ex.create_proposal_block(
+            h, state, commit, state.validators.get_proposer().address
+        )
+        bid = block.block_id(parts.header)
+        state, _ = await ex.apply_block(state, bid, block)
+        commit = make_commit(
+            genesis.chain_id, h, 0, bid, state.last_validators, by_addr,
+            timestamp_ns=block.header.time_ns + 1,
+        )
+        bstore.save_block(block, parts, commit)
+        if on_height is not None:
+            on_height(h, block, parts, commit, state)
+    return bstore, sstore, conns, state

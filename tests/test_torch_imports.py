@@ -197,3 +197,105 @@ def test_funnel_entry_points_raise_without_cuda_unless_cpu_requested(name):
         fn(device="cuda")
     assert verify_hub.running_hub() is None  # a refused hub never starts
     fn(device="cpu")  # the host, when asked for, works
+
+
+BLOCKSYNC_MODULES = [
+    "tendermint_tpu_torch.abci.application",
+    "tendermint_tpu_torch.abci.client",
+    "tendermint_tpu_torch.abci.kvstore",
+    "tendermint_tpu_torch.abci.types",
+    "tendermint_tpu_torch.blocksync",
+    "tendermint_tpu_torch.blocksync.messages",
+    "tendermint_tpu_torch.blocksync.pool",
+    "tendermint_tpu_torch.blocksync.reactor",
+    "tendermint_tpu_torch.consensus.replay",
+    "tendermint_tpu_torch.crypto.hash_hub",
+    "tendermint_tpu_torch.crypto.merkle",
+    "tendermint_tpu_torch.evidence",
+    "tendermint_tpu_torch.libs.bits",
+    "tendermint_tpu_torch.libs.fail",
+    "tendermint_tpu_torch.libs.pubsub",
+    "tendermint_tpu_torch.libs.service",
+    "tendermint_tpu_torch.mempool",
+    "tendermint_tpu_torch.p2p.peermanager",
+    "tendermint_tpu_torch.p2p.router",
+    "tendermint_tpu_torch.p2p.types",
+    "tendermint_tpu_torch.proxy",
+    "tendermint_tpu_torch.state.execution",
+    "tendermint_tpu_torch.state.state",
+    "tendermint_tpu_torch.state.store",
+    "tendermint_tpu_torch.state.validation",
+    "tendermint_tpu_torch.store.blockstore",
+    "tendermint_tpu_torch.store.db",
+    "tendermint_tpu_torch.types.events",
+    "tendermint_tpu_torch.types.evidence",
+    "tendermint_tpu_torch.types.genesis",
+    "tendermint_tpu_torch.types.params",
+    "tendermint_tpu_torch.types.part_set",
+    "tendermint_tpu_torch.types.vote",
+]
+
+
+def test_scan_and_blocked_import_cover_the_blocksync_modules():
+    """The AST scan and the jax-blocked import walk every module of the
+    package; the block-sync slice's modules are among them."""
+    assert set(BLOCKSYNC_MODULES) <= set(_port_modules())
+
+
+def _blocksync_entry_points():
+    import asyncio
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApp
+    from tendermint_tpu_torch.blocksync import messages as bsm
+    from tendermint_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from tendermint_tpu_torch.consensus.replay import Handshaker
+    from tendermint_tpu_torch.p2p.router import Channel
+    from tendermint_tpu_torch.proxy import AppConns
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.state.state import state_from_genesis
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.store.blockstore import BlockStore
+    from tendermint_tpu_torch.store.db import MemDB
+
+    keys = tt.det_priv_keys(2)
+    genesis = tt.make_genesis(keys, "c")
+    conns = AppConns.local(KVStoreApp())
+    state = state_from_genesis(genesis)
+
+    def executor(**kw):
+        return BlockExecutor(StateStore(MemDB()), conns.consensus, **kw)
+
+    def reactor(**kw):
+        ch = Channel(0x40, "blocksync", 5, bsm.encode_message, bsm.decode_message)
+        return BlockSyncReactor(
+            state, executor(device="cpu"), BlockStore(MemDB()), ch, asyncio.Queue(), **kw
+        )
+
+    return {
+        "BlockExecutor": executor,
+        "BlockSyncReactor": reactor,
+        "Handshaker": lambda **kw: Handshaker(
+            StateStore(MemDB()), state, BlockStore(MemDB()), genesis, **kw
+        ),
+        "build_kvstore_chain": lambda **kw: asyncio.run(
+            tt.build_kvstore_chain(genesis, keys, 2, **kw)
+        ),
+    }
+
+
+BLOCKSYNC_ENTRY_POINTS = ["BlockExecutor", "BlockSyncReactor", "Handshaker", "build_kvstore_chain"]
+
+
+@pytest.mark.parametrize("name", BLOCKSYNC_ENTRY_POINTS)
+def test_blocksync_entry_points_raise_without_cuda_unless_cpu_requested(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    points = _blocksync_entry_points()
+    assert sorted(points) == BLOCKSYNC_ENTRY_POINTS
+    fn = points[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(device="cuda")
+    fn(device="cpu")  # the host, when asked for, works
