@@ -73,21 +73,48 @@ failure exits non-zero, nothing is caught and carried past):
      then kernel_sig), then, after the punishment, inside two windows;
      the reactor must punish that height twice with a fatal PeerError
      naming the peer, request it again, and apply nothing from it on;
+ 13. the light client (run after phase 12, before the audit): bench.py's
+     light-client bench (BASELINE config 2) on the port — 1,000 signed
+     headers of the 150-validator set, built on the host as bench.py
+     builds them (seconds printed), then one verify_adjacent_chain over
+     the 999 after the first on the card, at the cutoff measured in phase
+     9: one verify_commit_range of 100,899 signatures, which must route
+     "cuda" and run as 13 `kernel_eq` chunks that all hold, with B1–B3
+     launched and the trusted head at height 1,000; prints headers/s, the
+     wall, the range's share of it and the launches beside
+     `CPUBatchVerifier(parallel=True)` over the same triples. Then a
+     LightClient over a list provider of the chain with one honest
+     witness: sequential (eight verify_adjacent_chain windows of ≤ 128
+     headers, each routed by the cutoff's rule, their routes and walls
+     printed) and skipping (one verify_non_adjacent through
+     verify_commit_light_trusting; its routes printed, not asserted).
+     Then a tampered pass: the commit for height 990 carries a flipped
+     signature bit, at place 99,793 of the range, in the last chunk:
+     verify_adjacent_chain must raise VerificationError naming height 990
+     and the signature, that chunk alone must fail and kernel_sig must
+     run once. Last a divergence: a witness serves a header at height
+     1,000 with another app hash, signed by the same 150 keys; the client
+     must raise Divergence, keep nothing past its anchor, and report one
+     LightClientAttackEvidence to the primary, whose bytes decode back
+     equal; prints its attributed validators;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
-     per-commit search and the attribution through kernel_sig) and the
+     per-commit search and the attribution through kernel_sig), the
      block-sync replay and its tampered pass (phase 12, two-chunk ranges
-     included) gave B1, B2 and B3 is held against the plain version with
-     torch.equal, on the inputs the path gave and on worst-case inputs of
-     the same shapes; phase 2's sizes must be sizes the main path gives;
-     the largest size of each kernel on the ed25519, sr25519 and
-     block-sync paths gets a timed `kernels` row of its own.
+     included) and the light paths (phase 13: the 13-chunk range, the
+     client's windows, the tampered range) gave B1, B2 and B3 is held
+     against the plain version with torch.equal, on the inputs the path
+     gave and on worst-case inputs of the same shapes; phase 2's sizes
+     must be sizes the main path gives; the largest size of each kernel
+     on the ed25519, sr25519, block-sync and light paths gets a timed
+     `kernels` row of its own.
 
 Each path's launch counts are set to 0 just before it and read just
 after (the block-sync reactor verifies in a worker thread; its launches
 count too). Prints the card's name and power limit, `breakdown`,
-`sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `shapes`, `slice` and
-`kernels` JSON lines, and last {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
+`sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `light`, `shapes`,
+`slice`, `kernels` and `script_wall_s` JSON lines, and last {"ok": true,
+"device": {...}}. Imports nothing of JAX or of the JAX
 package. Build output goes to build/torch_ext/.
 """
 
@@ -121,6 +148,15 @@ BS_CHAIN_ID = "bs-bench"
 BS_TAMPER_HEIGHT, BS_TAMPER_VAL = 100, 5
 BS_TAMPER_TOP = 2 * BS_WINDOW + 1
 BS_TIMEOUT_S = 600
+# phase 13, bench.py's light-client bench (BASELINE config 2): 150
+# validators of power 10, 1,000 signed headers, one verify_adjacent_chain
+N_LC_HEADERS = 1000
+LC_CHAIN_ID = "light-bench"
+LC_BASE_TS = 1_700_000_000_000_000_000
+# the tampered pass: the commit for LC_TAMPER_HEIGHT carries one flipped
+# signature bit; its place in the range, (990 - 2) * 101 + 5 = 99,793,
+# lies past 12 * 8,192, in the last kernel_eq chunk
+LC_TAMPER_HEIGHT, LC_TAMPER_VAL = 990, 5
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # CUDA-core float32 rate (an FMA counted as two operations). All three
@@ -1287,9 +1323,419 @@ def drive_blocksync(dev, audit: ShapeAudit) -> dict:
     }
 
 
+LC_MAIN = "light[verify_adjacent_chain]"
+LC_CLIENT = "light[client, sequential]"
+LC_TAMPERED = "light[verify_adjacent_chain, tampered]"
+
+
+def build_light_bench(n_vals: int, n_headers: int) -> dict:
+    """bench.py's light-client chain (`bench_light_client`,
+    bench.py:356-384), built on the host with the port's types: chain
+    "light-bench", `n_vals` ed25519 validators of power 10, hash-linked
+    headers one second apart, each committed by every validator. Returns
+    the light blocks, the keys, the trusting period, `now` and the
+    seconds taken."""
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto.hashes import sha256
+    from tendermint_tpu_torch.light.types import LightBlock, SignedHeader
+    from tendermint_tpu_torch.types.block import BlockID, Header, PartSetHeader
+
+    vals, keys = tt.make_validator_set(n_vals, power=10)
+    vh = vals.hash()
+    t0 = time.perf_counter()
+    blocks = []
+    prev_hash = sha256(b"genesis")
+    for h in range(1, n_headers + 1):
+        hdr = Header(
+            chain_id=LC_CHAIN_ID,
+            height=h,
+            time_ns=LC_BASE_TS + h * 1_000_000_000,
+            last_block_id=BlockID(prev_hash, PartSetHeader(1, sha256(b"pp"))),
+            data_hash=sha256(b"data-%d" % h),
+            validators_hash=vh,
+            next_validators_hash=vh,
+            consensus_hash=sha256(b"consensus"),
+            app_hash=sha256(b"app-%d" % h),
+            last_results_hash=sha256(b"res"),
+            proposer_address=vals.validators[h % n_vals].address,
+        )
+        bid = BlockID(hdr.hash(), PartSetHeader(1, sha256(b"parts-%d" % h)))
+        commit = tt.make_commit(LC_CHAIN_ID, h, 0, bid, vals, keys, timestamp_ns=hdr.time_ns)
+        blocks.append(LightBlock(SignedHeader(hdr, commit), vals))
+        prev_hash = hdr.hash()
+    return {
+        "blocks": blocks,
+        "keys": keys,
+        "period_ns": 10 * 365 * 24 * 3600 * 10**9,
+        "now_ns": LC_BASE_TS + (n_headers + 10) * 1_000_000_000,
+        "build_s": time.perf_counter() - t0,
+    }
+
+
+class BatchLog:
+    """What the verification funnel did while `recording()` is open: each
+    `AdaptiveBatchVerifier.verify` (its signatures and route, "cuda" or
+    "cpu", and when it returned), whether each `kernel_eq` chunk's
+    equation held, and the `kernel_sig` calls. Wraps the three by their
+    module names; none changes what it does."""
+
+    def __init__(self):
+        self.batches: list[tuple[int, str]] = []
+        self.returned: list[float] = []  # time.perf_counter() as each batch returned
+        self.chunks: list[bool] = []
+        self.kernel_sig = 0
+
+    @contextlib.contextmanager
+    def recording(self):
+        from tendermint_tpu_torch.crypto import batch
+        from tendermint_tpu_torch.crypto.cuda import verify as V
+
+        real_verify, real_eq, real_sig = batch.AdaptiveBatchVerifier.verify, V.kernel_eq, V.kernel_sig
+
+        def verify(bv):
+            out = real_verify(bv)
+            self.returned.append(time.perf_counter())
+            self.batches.append((len(bv._items), bv.last_route))
+            return out
+
+        def kernel_eq(*ops):
+            bitmap, eq_ok = real_eq(*ops)
+            self.chunks.append(eq_ok)  # a device scalar: read when the recording ends
+            return bitmap, eq_ok
+
+        def kernel_sig(*ops):
+            self.kernel_sig += 1
+            return real_sig(*ops)
+
+        batch.AdaptiveBatchVerifier.verify, V.kernel_eq, V.kernel_sig = verify, kernel_eq, kernel_sig
+        try:
+            yield self
+        finally:
+            batch.AdaptiveBatchVerifier.verify, V.kernel_eq, V.kernel_sig = (
+                real_verify, real_eq, real_sig)
+            self.chunks = [bool(ok) for ok in self.chunks]
+
+
+def _light_items(blocks):
+    """The (pub, msg, sig) triples of verify_adjacent_chain's one range:
+    every block but the first, light semantics."""
+    return range_items([(lb.validators, lb.signed_header.commit.block_id, lb.height,
+                         lb.signed_header.commit) for lb in blocks[1:]], LC_CHAIN_ID)
+
+
+def _tamper_light(lb, vi: int):
+    from dataclasses import replace
+
+    from tendermint_tpu_torch.light.types import LightBlock, SignedHeader
+
+    commit = lb.signed_header.commit
+    sigs = list(commit.signatures)
+    s = sigs[vi].signature
+    sigs[vi] = replace(sigs[vi], signature=s[:40] + bytes([s[40] ^ 1]) + s[41:])
+    return LightBlock(SignedHeader(lb.header, replace(commit, signatures=tuple(sigs))),
+                      lb.validators)
+
+
+def _resign_light(lb, keys, **header_fields):
+    """`lb` with its header fields changed and a commit over the new
+    header by its own validators (a conflicting header, validly signed)."""
+    from dataclasses import replace
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.light.types import LightBlock, SignedHeader
+    from tendermint_tpu_torch.types.block import BlockID
+
+    hdr = replace(lb.header, **header_fields)
+    bid = BlockID(hdr.hash(), lb.signed_header.commit.block_id.part_set_header)
+    commit = tt.make_commit(LC_CHAIN_ID, hdr.height, 0, bid, lb.validators, keys,
+                            timestamp_ns=hdr.time_ns)
+    return LightBlock(SignedHeader(hdr, commit), lb.validators)
+
+
+def _light_client_run(dev, blocks, lc: dict, *, sequential: bool, witnesses=()) -> dict:
+    """A LightClient on `dev` over a list provider of `blocks` (trust
+    pinned at height 1), witnesses as given: initialize, then verify the
+    top height. Each verify_adjacent_chain window's headers, wall and
+    routes are recorded. Returns what it did; an exception propagates."""
+    import asyncio
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.light import client as C
+    from tendermint_tpu_torch.light import verifier
+
+    primary = tt.make_list_provider(blocks, LC_CHAIN_ID)
+    opts = C.TrustOptions(lc["period_ns"], 1, blocks[0].header.hash())
+    client = C.LightClient(LC_CHAIN_ID, opts, primary, list(witnesses), sequential=sequential,
+                           device=dev)
+    windows: list[dict] = []
+    log = BatchLog()
+    real_chain = verifier.verify_adjacent_chain
+
+    def verify_adjacent_chain(chain_id, trusted, chain, *a, **kw):
+        before = len(log.batches)
+        t0 = time.perf_counter()
+        out = real_chain(chain_id, trusted, chain, *a, **kw)
+        _sync(dev)
+        windows.append({"first_height": chain[0].height, "headers": len(chain),
+                        "wall_s": time.perf_counter() - t0,
+                        "batches": log.batches[before:]})
+        return out
+
+    async def go():
+        await client.initialize()
+        return await client.verify_light_block_at_height(len(blocks), lc["now_ns"])
+
+    verifier.verify_adjacent_chain = verify_adjacent_chain
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    try:
+        with log.recording():
+            got = asyncio.run(go())
+        _sync(dev)
+    finally:
+        verifier.verify_adjacent_chain = real_chain
+    return {"client": client, "height": got.height,
+            "wall_s": time.perf_counter() - t0, "windows": windows, "batches": log.batches,
+            "launches": _launch_counts()}
+
+
+def drive_light(dev, audit: ShapeAudit) -> dict:
+    """Phase 13: bench.py's light-client bench (BASELINE config 2) on the
+    port, then a LightClient over the same chain, a tampered pass and a
+    divergence."""
+    import asyncio
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto.batch import CPUBatchVerifier
+    from tendermint_tpu_torch.crypto.cuda import verify as V
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PubKey
+    from tendermint_tpu_torch.light import client as C
+    from tendermint_tpu_torch.light import verifier
+    from tendermint_tpu_torch.light.provider import Provider
+    from tendermint_tpu_torch.types import evidence as E
+
+    lc = build_light_bench(N_VALS, N_LC_HEADERS)
+    blocks = lc["blocks"]
+    print(f"light: built {N_LC_HEADERS} signed headers in {lc['build_s']:.1f} s")
+    items = _light_items(blocks)
+    sigs = len(items)
+    chunks = -(-sigs // V._MAX_BUCKET)
+    cutoff = batch.MIN_TPU_BATCH
+
+    # (a) bench.py's call: one verify_adjacent_chain over 999 headers
+    range_wall = []
+    real_range = verifier.verify_commit_range
+
+    def timed_range(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_range(*a, **kw)
+        finally:
+            _sync(dev)
+            range_wall.append(time.perf_counter() - t)
+
+    log = BatchLog()
+    verifier.verify_commit_range = timed_range
+    try:
+        with log.recording(), audit.recording(LC_MAIN):
+            _launch_counts(reset=True)
+            t0 = time.perf_counter()
+            trusted = verifier.verify_adjacent_chain(
+                LC_CHAIN_ID, blocks[0], blocks[1:], lc["period_ns"], lc["now_ns"], device=dev)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            launches = _launch_counts()
+    finally:
+        verifier.verify_commit_range = real_range
+    if trusted.height != N_LC_HEADERS:
+        raise AssertionError(f"verify_adjacent_chain ended at height {trusted.height}")
+    if log.batches != [(sigs, "cuda" if sigs >= cutoff else "cpu")] or sigs < cutoff:
+        raise AssertionError(f"the range of {sigs} signatures routed {log.batches} "
+                             f"(cutoff {cutoff})")
+    if log.chunks != [True] * chunks or log.kernel_sig:
+        raise AssertionError(f"kernel_eq chunks {log.chunks}, kernel_sig {log.kernel_sig}: "
+                             f"want {chunks} chunks that hold")
+    _require_all_launched("light verify_adjacent_chain", launches)
+
+    bv = CPUBatchVerifier(parallel=True)
+    for pub, msg, sig in items:
+        bv.add(Ed25519PubKey(pub), msg, sig)
+    t0 = time.perf_counter()
+    ok, _ = bv.verify()
+    floor_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("host verification rejected a light-chain signature")
+
+    # (b) a LightClient over the same chain, one honest witness: the
+    # sequential windows (128 headers, two chunks each), then one skip
+    witness = tt.make_list_provider(blocks, LC_CHAIN_ID)
+    with audit.recording(LC_CLIENT):
+        seq = _light_client_run(dev, blocks, lc, sequential=True, witnesses=[witness])
+    if seq["height"] != N_LC_HEADERS or seq["client"].store.latest().height != N_LC_HEADERS:
+        raise AssertionError(f"sequential client ended at {seq['height']}")
+    want_windows = -(-(N_LC_HEADERS - 1) // 128)
+    if len(seq["windows"]) != want_windows:
+        raise AssertionError(f"{len(seq['windows'])} windows, not {want_windows}")
+    for w in seq["windows"]:
+        n = len(_light_items(blocks[w["first_height"] - 2:w["first_height"] - 1 + w["headers"]]))
+        w["sigs"] = n
+        if [r for _n, r in w["batches"]] != ["cuda" if n >= cutoff else "cpu"]:
+            raise AssertionError(f"window {w} routed off the cutoff's rule ({cutoff})")
+    skip = _light_client_run(dev, blocks, lc, sequential=False, witnesses=[witness])
+    if skip["height"] != N_LC_HEADERS or skip["windows"]:
+        raise AssertionError(f"skipping client: {skip['height']}, windows {skip['windows']}")
+
+    # (c) the commit for LC_TAMPER_HEIGHT with one flipped signature bit:
+    # it sits in the last kernel_eq chunk, which alone fails; kernel_sig
+    # attributes it there, and the per-commit search names the height
+    bad = list(blocks)
+    bad[LC_TAMPER_HEIGHT - 1] = _tamper_light(blocks[LC_TAMPER_HEIGHT - 1], LC_TAMPER_VAL)
+    bad_pos = (LC_TAMPER_HEIGHT - 2) * (sigs // (N_LC_HEADERS - 1)) + LC_TAMPER_VAL
+    if bad_pos // V._MAX_BUCKET != chunks - 1:
+        raise AssertionError(f"signature {bad_pos} is not in the last of {chunks} chunks")
+    tlog = BatchLog()
+    with tlog.recording(), audit.recording(LC_TAMPERED):
+        _launch_counts(reset=True)
+        t_bad = time.perf_counter()
+        try:
+            verifier.verify_adjacent_chain(LC_CHAIN_ID, bad[0], bad[1:], lc["period_ns"],
+                                           lc["now_ns"], device=dev)
+        except verifier.VerificationError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("a tampered light chain verified")
+        _sync(dev)
+        tampered_wall = time.perf_counter() - t_bad
+        tlaunches = _launch_counts()
+    if f"at height {LC_TAMPER_HEIGHT}:" not in raised or f"index {LC_TAMPER_VAL}" not in raised:
+        raise AssertionError(f"wrong height or signature blamed: {raised}")
+    if tlog.batches[0] != (sigs, log.batches[0][1]) or \
+            tlog.chunks != [True] * (chunks - 1) + [False] or tlog.kernel_sig != 1:
+        raise AssertionError(f"tampered range: batches {tlog.batches[:2]}, chunks "
+                             f"{tlog.chunks}, kernel_sig {tlog.kernel_sig}")
+    _require_all_launched("tampered light verify_adjacent_chain", tlaunches)
+
+    # (d) a witness serving, at the top height, a header with another app
+    # hash signed by the same keys: the client must raise Divergence and
+    # report LightClientAttackEvidence to the primary
+    forged = _resign_light(blocks[-1], lc["keys"], app_hash=b"\xde\xad" * 16)
+
+    class Forging(Provider):
+        def __init__(self, inner, at: dict):
+            self.inner, self.at, self.reported = inner, at, []
+
+        def __repr__(self):
+            return "forging-witness" if self.at else "primary"
+
+        def chain_id(self):
+            return LC_CHAIN_ID
+
+        async def light_block(self, height):
+            return self.at.get(height) or await self.inner.light_block(height)
+
+        async def report_evidence(self, evidence):
+            self.reported.append(evidence)
+
+    primary = Forging(tt.make_list_provider(blocks, LC_CHAIN_ID), {})
+    forging = Forging(tt.make_list_provider(blocks, LC_CHAIN_ID), {N_LC_HEADERS: forged})
+    client = C.LightClient(LC_CHAIN_ID, C.TrustOptions(lc["period_ns"], 1, blocks[0].header.hash()),
+                           primary, [forging], device=dev)
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    try:
+        asyncio.run(client.verify_light_block_at_height(N_LC_HEADERS, lc["now_ns"]))
+    except C.Divergence as e:
+        diverged_at = e.challenging.height
+    else:
+        raise AssertionError("the forged witness header raised no Divergence")
+    divergence_wall = time.perf_counter() - t0
+    dlaunches = _launch_counts()
+    if diverged_at != N_LC_HEADERS or len(primary.reported) != 1:
+        raise AssertionError(f"divergence at {diverged_at}, {len(primary.reported)} reports")
+    (ev,) = primary.reported
+    if not isinstance(ev, E.LightClientAttackEvidence):
+        raise AssertionError(f"reported {type(ev).__name__}")
+    ev.validate_basic()
+    back = E.decode_evidence(ev.encode())
+    if back.encode() != ev.encode() or back.hash() != ev.hash() \
+            or back.conflicting_block.header.hash() != forged.header.hash():
+        raise AssertionError("the attack evidence does not decode back equal")
+    if client.store.latest().height != 1:
+        raise AssertionError("a diverged header reached the trusted store")
+
+    def window_row(w):
+        return {"first_height": w["first_height"], "headers": w["headers"], "sigs": w["sigs"],
+                "routes": [r for _n, r in w["batches"]], "wall_s": w["wall_s"]}
+
+    return {
+        "entry": "light.verifier.verify_adjacent_chain (bench.py bench_light_client), no hub",
+        "device": dev.type,
+        "validators": N_VALS,
+        "headers": N_LC_HEADERS,
+        "chain_build_s": lc["build_s"],
+        "sigs": sigs,
+        "route": log.batches[0][1],
+        "kernel_eq_chunks": len(log.chunks),
+        "bucket": V._bucket(min(sigs, V._MAX_BUCKET)),
+        "min_tpu_batch": cutoff,
+        "wall_s": wall,
+        "headers_per_s": (N_LC_HEADERS - 1) / wall,
+        "sigs_per_s": sigs / wall,
+        "range_wall_s": range_wall[0],
+        "host_link_checks_s": wall - range_wall[0],
+        "launches": launches,
+        "cpu_floor": {
+            "entry": "CPUBatchVerifier(parallel=True)",
+            "sigs": sigs,
+            "cores": os.cpu_count(),
+            "wall_s": floor_s,
+            "sigs_per_s": sigs / floor_s,
+            "headers_per_s": (N_LC_HEADERS - 1) / floor_s,
+        },
+        "client_sequential": {
+            "wall_s": seq["wall_s"],
+            "headers_per_s": (N_LC_HEADERS - 1) / seq["wall_s"],
+            "windows": [window_row(w) for w in seq["windows"]],
+            "initialize_batches": seq["batches"][:1],
+            "launches": seq["launches"],
+        },
+        "client_skipping": {
+            "wall_s": skip["wall_s"],
+            "batches": skip["batches"],
+            "launches": skip["launches"],
+        },
+        "tampered": {
+            "height": LC_TAMPER_HEIGHT,
+            "signature_position": bad_pos,
+            "raised": raised,
+            "chunks_held": tlog.chunks,
+            "kernel_sig_calls": tlog.kernel_sig,
+            "per_commit_search_batches": len(tlog.batches) - 1,
+            "per_commit_search_routes": sorted({r for _n, r in tlog.batches[1:]}),
+            "wall_s": tampered_wall,
+            # the failed range (link checks, 13 chunks, kernel_sig), then
+            # the reference's per-commit search that names the height
+            "range_s": tlog.returned[0] - t_bad,
+            "per_commit_search_s": t_bad + tampered_wall - tlog.returned[0],
+            "launches": tlaunches,
+        },
+        "divergence": {
+            "height": diverged_at,
+            "evidence_bytes": len(ev.encode()),
+            "common_height": ev.common_height,
+            "byzantine_validators": len(ev.byzantine_validators),
+            "reported_to_primary": len(primary.reported),
+            "wall_s": divergence_wall,
+            "launches": dlaunches,
+        },
+    }
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1349,6 +1795,8 @@ def main() -> int:
     print(json.dumps({"hub": hub}))
     bs = drive_blocksync(dev, audit)
     print(json.dumps({"blocksync": bs}))
+    light = drive_light(dev, audit)
+    print(json.dumps({"light": light}))
 
     by_path = {
         "verify_commit_range[ed25519]": run["launches"],
@@ -1359,14 +1807,20 @@ def main() -> int:
         "verify_commit_range[hub, max_batch 512]": hub["passes"][2]["launches"],
         "blocksync[replay of the 1,024-block chain]": bs["launches"],
         "blocksync[tampered pass]": bs["tampered"]["launches"],
+        "light[verify_adjacent_chain, 1,000 headers]": light["launches"],
+        "light[client, sequential]": light["client_sequential"]["launches"],
+        "light[client, skipping]": light["client_skipping"]["launches"],
+        "light[tampered pass]": light["tampered"]["launches"],
+        "light[divergence]": light["divergence"]["launches"],
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
 
-    held = audit_shapes(dev, audit, rows, (ED_MAIN, SR_MAIN, BS_MAIN))
+    held = audit_shapes(dev, audit, rows, (ED_MAIN, SR_MAIN, BS_MAIN, LC_MAIN))
     for name in _build.KERNELS:
         paths = {p for rec in held.get(name, []) for p in rec["calls"]}
-        if not {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED, BS_MAIN} <= paths:
+        if not {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED, BS_MAIN, LC_MAIN,
+                LC_TAMPERED} <= paths:
             raise AssertionError(f"{name}: shapes recorded on {sorted(paths)} only")
     print(json.dumps({"shapes": held}))
     for row in rows:
@@ -1376,6 +1830,7 @@ def main() -> int:
 
     print(json.dumps({"slice": run["slice"]}))
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"script_wall_s": time.perf_counter() - t_start}))
     print(json.dumps({
         "ok": True,
         "device": {

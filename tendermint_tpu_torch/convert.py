@@ -18,6 +18,11 @@ the port), so a chain built by one package replays in the other:
   block, commit, valset, state   Block, Commit, ValidatorSet, State
   genesis                        GenesisDoc (through its JSON)
   block_store                    every block and commit of a BlockStore
+  light_block, signed_header     LightBlock, SignedHeader
+  evidence                       DuplicateVote / LightClientAttack evidence
+
+and evidence back (`evidence_to(ev, decode_evidence)`, with the other
+package's decoder passed in, so this module imports nothing of it).
 """
 
 from __future__ import annotations
@@ -118,3 +123,31 @@ def block_store(ref_store, db=None):
         b = block(ref_store.load_block(h))
         out.save_block(b, b.make_part_set(), commit(ref_store.load_seen_commit(h)))
     return out
+
+
+def light_block(ref_lb):
+    """The reference's LightBlock → the port's."""
+    from .light.types import LightBlock
+
+    return LightBlock.decode(ref_lb.encode())
+
+
+def signed_header(ref_sh):
+    from .light.types import SignedHeader
+
+    return SignedHeader.decode(ref_sh.encode())
+
+
+def evidence(ref_ev):
+    """The reference's evidence (either kind) → the port's."""
+    from .types.evidence import decode_evidence
+
+    return decode_evidence(ref_ev.encode())
+
+
+def evidence_to(ev, decode_evidence):
+    """Evidence of one package → the other's, through the shared wire
+    bytes: `decode_evidence` is the receiving package's decoder (the
+    reference's `types.evidence.decode_evidence` to carry the port's
+    evidence back)."""
+    return decode_evidence(ev.encode())

@@ -1,0 +1,10 @@
+"""Light client (reference light/; the port's copy of tendermint_tpu/light/):
+verify headers against a trusted header using validator-set overlap
+instead of replaying the chain. The stateless core verifier is
+light/verifier.py; the stateful client with bisection, a pluggable
+trusted store, and witness cross-checking is light/client.py. The
+reference's fleet, proxy and byzantine modules are not ported yet."""
+
+from .types import LightBlock, SignedHeader
+
+__all__ = ["LightBlock", "SignedHeader"]

@@ -1,7 +1,7 @@
-"""Test/bench fixtures: deterministic validator sets, signed commits and
-kvstore chains (the subset of tendermint_tpu/testing.py the commit and
-block-sync paths need, and the chain build of bench.py's block-sync
-bench). Keys derive from the same seeds as the reference's, so both
+"""Test/bench fixtures: deterministic validator sets, signed commits,
+light chains and kvstore chains (the subset of tendermint_tpu/testing.py
+the commit, block-sync and light-client paths need, and the chain build
+of bench.py's block-sync bench). Keys derive from the same seeds as the reference's, so both
 packages build the same validators and addresses, and the same
 signatures wherever the scheme is deterministic (ed25519, sr25519;
 secp256k1 only on the pure-Python path)."""
@@ -89,6 +89,81 @@ def make_commit(
         else:
             sigs.append(CommitSig.for_block(val.address, ts, sig))
     return Commit(height, round_, block_id, tuple(sigs))
+
+
+def make_light_chain(
+    n_heights: int,
+    vals: ValidatorSet,
+    keys_by_addr: dict,
+    chain_id: str = "light-chain",
+    *,
+    start_time_ns: int = 1_700_000_000_000_000_000,
+    block_interval_ns: int = 1_000_000_000,
+):
+    """A synthetic chain of properly-signed LightBlocks 1..n_heights
+    over one static validator set: hash-linked headers with monotone
+    times, each committed by the full set — the light-client serving /
+    hop-proof workload shape (LightFleet tests and `bench.py
+    light_fleet`) without spinning a live network."""
+    from .crypto.hashes import sha256 as _sha
+    from .light.types import LightBlock, SignedHeader
+    from .types.block import Header
+
+    out: list = []
+    last_bid = BlockID()
+    vh = vals.hash()
+    for h in range(1, n_heights + 1):
+        header = Header(
+            chain_id=chain_id,
+            height=h,
+            time_ns=start_time_ns + h * block_interval_ns,
+            last_block_id=last_bid,
+            last_commit_hash=_sha(b"lc" + h.to_bytes(8, "big")),
+            data_hash=_sha(b"data" + h.to_bytes(8, "big")),
+            validators_hash=vh,
+            next_validators_hash=vh,
+            consensus_hash=_sha(b"consensus"),
+            app_hash=_sha(b"app" + h.to_bytes(8, "big")),
+            last_results_hash=_sha(b"results"),
+            evidence_hash=b"",
+            proposer_address=vals.validators[h % len(vals.validators)].address,
+        )
+        bid = BlockID(header.hash(), PartSetHeader(1, _sha(b"p" + h.to_bytes(8, "big"))))
+        commit = make_commit(
+            chain_id, h, 0, bid, vals, keys_by_addr,
+            timestamp_ns=header.time_ns,
+        )
+        out.append(LightBlock(SignedHeader(header, commit), vals))
+        last_bid = bid
+    return out
+
+
+def make_list_provider(blocks, chain_id: str = "light-chain"):
+    """An in-memory light-block Provider over a prebuilt chain (height
+    0 = tip), with a fetch counter — the serving-side fixture for the
+    LightFleet tests and `bench.py light_fleet`."""
+    from .light.provider import LightBlockNotFoundError, Provider
+
+    class ListProvider(Provider):
+        def __init__(self):
+            self.blocks = {b.height: b for b in blocks}
+            self.tip = max(self.blocks)
+            self.fetches = 0
+
+        def chain_id(self):
+            return chain_id
+
+        async def light_block(self, height):
+            self.fetches += 1
+            h = height or self.tip
+            if h not in self.blocks:
+                raise LightBlockNotFoundError(str(h))
+            return self.blocks[h]
+
+        async def report_evidence(self, ev):
+            pass
+
+    return ListProvider()
 
 
 def make_genesis(

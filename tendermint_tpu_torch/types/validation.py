@@ -6,6 +6,9 @@ types/validation.go:25-265, and of tendermint_tpu/types/validation.py).
                          only votes for the block.
   verify_commit_light  — only signatures for the committed block are
                          verified, stopping at +2/3.
+  verify_commit_light_trusting — light-client skipping verification:
+                         validators looked up by address in the *trusted*
+                         set, `trust_level` (default 1/3) of its power.
   verify_commit_range  — a range of commits (a block-sync window) in ONE
                          batch verifier call, light semantics per commit.
 
@@ -23,6 +26,8 @@ reference.
 """
 
 from __future__ import annotations
+
+from fractions import Fraction
 
 from ..crypto import batch as crypto_batch
 from ..device import DEFAULT_DEVICE, resolve
@@ -104,7 +109,7 @@ def verify_commit(
     dev = resolve(device)
     _basic_commit_checks(vals, block_id, height, commit)
     voting_power_needed = vals.total_voting_power() * 2 // 3
-    _verify(chain_id, vals, commit, voting_power_needed, True, dev, lane)
+    _verify(chain_id, vals, commit, voting_power_needed, True, True, dev, lane)
 
 
 def verify_commit_light(
@@ -122,40 +127,78 @@ def verify_commit_light(
     dev = resolve(device)
     _basic_commit_checks(vals, block_id, height, commit)
     voting_power_needed = vals.total_voting_power() * 2 // 3
-    _verify(chain_id, vals, commit, voting_power_needed, False, dev, lane)
+    _verify(chain_id, vals, commit, voting_power_needed, False, True, dev, lane)
 
 
-def _verify(chain_id, vals, commit, voting_power_needed, count_all_signatures, dev, lane):
+def verify_commit_light_trusting(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    trust_level: Fraction = Fraction(1, 3),
+    *,
+    device=DEFAULT_DEVICE,
+    lane: str = "live",
+) -> None:
+    """Light-client skipping verification against a *trusted* validator set
+    (reference types/validation.go:94): validators are matched by address
+    (the untrusted set may have rotated), and `trust_level` of the trusted
+    power must have signed."""
+    dev = resolve(device)
+    if trust_level.numerator * 3 < trust_level.denominator or trust_level > 1:
+        raise ValueError("trust level must be in [1/3, 1]")
+    total = vals.total_voting_power()
+    voting_power_needed = total * trust_level.numerator // trust_level.denominator
+    _verify(chain_id, vals, commit, voting_power_needed, False, False, dev, lane)
+
+
+def _verify(
+    chain_id, vals, commit, voting_power_needed, count_all_signatures, lookup_by_index, dev, lane
+):
     if commit.is_aggregate():
         # one BLS pairing-product check in the reference
         raise NotImplementedError("aggregate (BLS) commits wait for the BLS port")
     if _should_batch_verify(vals, commit):
         _verify_batch(
-            chain_id, vals, commit, voting_power_needed, count_all_signatures, dev, lane
+            chain_id, vals, commit, voting_power_needed, count_all_signatures,
+            lookup_by_index, dev, lane,
         )
     else:
-        _verify_single(chain_id, vals, commit, voting_power_needed, count_all_signatures, lane)
+        _verify_single(
+            chain_id, vals, commit, voting_power_needed, count_all_signatures,
+            lookup_by_index, lane,
+        )
 
 
-def _iter_entries(vals: ValidatorSet, commit: Commit):
-    """Yield (idx, commit_sig, validator) for the non-absent signatures,
-    validators looked up by index."""
+def _iter_entries(vals: ValidatorSet, commit: Commit, lookup_by_index: bool):
+    """Yield (idx, commit_sig, validator) for signatures that participate.
+    Absent sigs never participate; with address lookup (trusting mode),
+    unknown validators are skipped and double-signing addresses rejected."""
+    seen: set[bytes] = set()
     for idx, cs in enumerate(commit.signatures):
         if cs.is_absent():
             continue
-        val = vals.get_by_index(idx)
-        if val is None:
-            raise InvalidCommitError(f"no validator at index {idx}")
+        if lookup_by_index:
+            val = vals.get_by_index(idx)
+            if val is None:
+                raise InvalidCommitError(f"no validator at index {idx}")
+        else:
+            _, val = vals.get_by_address(cs.validator_address)
+            if val is None:
+                continue
+            if cs.validator_address in seen:
+                raise InvalidCommitError("double vote from same address")
+            seen.add(cs.validator_address)
         yield idx, cs, val
 
 
 def _verify_batch(
-    chain_id, vals, commit, voting_power_needed, count_all_signatures, dev, lane
+    chain_id, vals, commit, voting_power_needed, count_all_signatures, lookup_by_index, dev,
+    lane,
 ) -> None:
     bv = _CommitVerifier(vals.validators[0].pub_key, dev, lane)
     tallied = 0
     entries = []
-    for idx, cs, val in _iter_entries(vals, commit):
+    for idx, cs, val in _iter_entries(vals, commit, lookup_by_index):
         if not count_all_signatures and not cs.is_commit():
             continue
         bv.add(val.pub_key, commit.vote_sign_bytes(chain_id, idx), cs.signature)
@@ -180,12 +223,12 @@ def _verify_batch(
 
 
 def _verify_single(
-    chain_id, vals, commit, voting_power_needed, count_all_signatures, lane
+    chain_id, vals, commit, voting_power_needed, count_all_signatures, lookup_by_index, lane
 ) -> None:
     from ..crypto.verify_hub import verify_one
 
     tallied = 0
-    for idx, cs, val in _iter_entries(vals, commit):
+    for idx, cs, val in _iter_entries(vals, commit, lookup_by_index):
         if not count_all_signatures and not cs.is_commit():
             continue
         if not verify_one(
@@ -242,7 +285,7 @@ def verify_commit_range(
                 bv = _CommitVerifier(vals.validators[0].pub_key, dev, lane)
             voting_power_needed = vals.total_voting_power() * 2 // 3
             tallied = 0
-            for idx, cs, val in _iter_entries(vals, commit):
+            for idx, cs, val in _iter_entries(vals, commit, lookup_by_index=True):
                 if not cs.is_commit():
                     continue
                 bv.add(val.pub_key, commit.vote_sign_bytes(chain_id, idx), cs.signature)

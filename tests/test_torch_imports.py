@@ -8,6 +8,7 @@
 """
 
 import ast
+import asyncio
 import subprocess
 import sys
 from pathlib import Path
@@ -293,6 +294,80 @@ def test_blocksync_entry_points_raise_without_cuda_unless_cpu_requested(name):
         pytest.skip("a CUDA card is present: the default device is usable here")
     points = _blocksync_entry_points()
     assert sorted(points) == BLOCKSYNC_ENTRY_POINTS
+    fn = points[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(device="cuda")
+    fn(device="cpu")  # the host, when asked for, works
+
+
+LIGHT_MODULES = [
+    "tendermint_tpu_torch.libs.retry",
+    "tendermint_tpu_torch.light",
+    "tendermint_tpu_torch.light.client",
+    "tendermint_tpu_torch.light.provider",
+    "tendermint_tpu_torch.light.types",
+    "tendermint_tpu_torch.light.verifier",
+]
+
+
+def test_scan_and_blocked_import_cover_the_light_modules():
+    """The AST scan and the jax-blocked import walk every module of the
+    package; the light client's modules are among them, and the types it
+    adds elsewhere are there."""
+    assert set(LIGHT_MODULES) <= set(_port_modules())
+    from tendermint_tpu_torch.types import evidence, validation
+
+    assert callable(validation.verify_commit_light_trusting)
+    assert evidence.LightClientAttackEvidence.TYPE == evidence.EVIDENCE_LIGHT_CLIENT_ATTACK
+
+
+def _light_entry_points():
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.light import client, verifier
+    from tendermint_tpu_torch.types import validation
+
+    vals, keys = tt.make_validator_set(2)
+    chain = tt.make_light_chain(3, vals, keys, "c")
+    now = chain[-1].header.time_ns + 10**9
+    period = 10**18
+
+    def light_client(**kw):
+        opts = client.TrustOptions(period, 1, chain[0].header.hash())
+        lc = client.LightClient("c", opts, tt.make_list_provider(chain, "c"), **kw)
+        return asyncio.run(lc.verify_light_block_at_height(3, now))
+
+    return {
+        "LightClient": light_client,
+        "verify": lambda **kw: verifier.verify("c", chain[0], chain[2], period, now, **kw),
+        "verify_adjacent": lambda **kw: verifier.verify_adjacent(
+            "c", chain[0], chain[1], period, now, **kw
+        ),
+        "verify_adjacent_chain": lambda **kw: verifier.verify_adjacent_chain(
+            "c", chain[0], chain[1:], period, now, **kw
+        ),
+        "verify_commit_light_trusting": lambda **kw: validation.verify_commit_light_trusting(
+            "c", vals, chain[2].signed_header.commit, **kw
+        ),
+        "verify_non_adjacent": lambda **kw: verifier.verify_non_adjacent(
+            "c", chain[0], chain[2], period, now, **kw
+        ),
+    }
+
+
+LIGHT_ENTRY_POINTS = [
+    "LightClient", "verify", "verify_adjacent", "verify_adjacent_chain",
+    "verify_commit_light_trusting", "verify_non_adjacent",
+]
+
+
+@pytest.mark.parametrize("name", LIGHT_ENTRY_POINTS)
+def test_light_entry_points_raise_without_cuda_unless_cpu_requested(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    points = _light_entry_points()
+    assert sorted(points) == LIGHT_ENTRY_POINTS
     fn = points[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn()
