@@ -16,7 +16,7 @@ failure exits non-zero, nothing is caught and carried past):
      that the main path gives these sizes), with torch.equal (integer
      arithmetic: the tolerance is zero); time each kernel alone
      (torch.profiler, three repeats), through its wrapper (CUDA events,
-     three repeats), and its plain version;
+     three repeats), and its plain version (K7a and K7b: phase 14);
   3. verify_commit_range over 54 commits of a 150-validator set (one
      8,192-signature bucket, 150 unique keys) with the launch counts set
      to 0 just before and read just after; then verify_batch_eq over every
@@ -97,6 +97,30 @@ failure exits non-zero, nothing is caught and carried past):
      must raise Divergence, keep nothing past its anchor, and report one
      LightClientAttackEvidence to the primary, whose bytes decode back
      equal; prints its attributed validators;
+ 14. BLS aggregate commits (run after phase 13, before the audit):
+     bench.py's bench_commit_ab(150, 4), its bls_aggregate half — 150
+     bls12381 validators (seed b"ab-bls_aggregate", chain "ab-chain") and 4
+     commits folded by aggregate_commit, built on the host (seconds
+     printed); with no hub and the hash-to-curve memo cleared before each
+     pass, verify_commit on each commit, then one verify_commit_range over
+     the 4: every check one pairing item of 151 pairs, so K7a
+     (bls_miller) and K7b (bls_final_exp) each launch 8 times, all at the
+     (2, 256) bucket; each pass prints its wall, the host split
+     (hash-to-curve, line preparation, packing, the copy), each kernel's
+     device ms and the card's idle share (torch.profiler). Then the
+     pure-Python floor (bls.aggregate_verify) and the card's
+     verify_commit on one commit in turns (floor, card, card, floor); a
+     tampered aggregate (validator 7 signs other bytes before the aggregation) must
+     raise "aggregate signature verification failed" after one launch of
+     each kernel; one per-signature BLS commit through verify_commit_range
+     inside a running hub: its 101 signatures take the "bls" partition,
+     one dispatch on the card at the (128, 2) bucket, and with a flipped
+     signature bit (a fresh hub) it must name commit 0 and signature 7.
+     K7a and K7b are held torch.equal to their plain versions on the card
+     at every shape these paths gave them, on the paths' inputs and on
+     worst-case ones (p - 1 in every input, zero lines, pad pairs), and
+     K7b against bls_math.final_exp on 2 items of the (128, 2) bucket;
+     each gets a timed `kernels` row at (2, 256);
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
@@ -112,8 +136,8 @@ failure exits non-zero, nothing is caught and carried past):
 Each path's launch counts are set to 0 just before it and read just
 after (the block-sync reactor verifies in a worker thread; its launches
 count too). Prints the card's name and power limit, `breakdown`,
-`sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `light`, `shapes`,
-`slice`, `kernels` and `script_wall_s` JSON lines, and last {"ok": true,
+`sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `light`, `bls`,
+`shapes`, `slice`, `kernels` and `script_wall_s` JSON lines, and last {"ok": true,
 "device": {...}}. Imports nothing of JAX or of the JAX
 package. Build output goes to build/torch_ext/.
 """
@@ -157,6 +181,16 @@ LC_BASE_TS = 1_700_000_000_000_000_000
 # signature bit; its place in the range, (990 - 2) * 101 + 5 = 99,793,
 # lies past 12 * 8,192, in the last kernel_eq chunk
 LC_TAMPER_HEIGHT, LC_TAMPER_VAL = 990, 5
+# phase 14, bench.py's bench_commit_ab(150, 4), its bls_aggregate half:
+# 150 bls12381 validators, 4 commits folded into aggregates
+N_AB_COMMITS = 4
+AB_CHAIN_ID = "ab-chain"
+AB_SEED = b"ab-bls_aggregate"
+AB_BASE_TS = 1_700_000_000_000_000_000
+# the tampered aggregate: this validator signs other bytes before the
+# aggregation; the tampered per-signature commit: a flipped bit in its
+# signature
+AB_TAMPER_VAL = 7
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # CUDA-core float32 rate (an FMA counted as two operations). All three
@@ -181,6 +215,44 @@ FE_ADD_OPS = 32 + (3 * 32 + 1)
 POW22523_OPS = 251 * FE_SQR_OPS + 11 * FE_MUL_OPS
 ADD_CACHED_OPS = 8 * FE_MUL_OPS + 3 * FE_SUB_OPS + 3 * FE_ADD_OPS
 LIMB_BYTES = 32 * 4
+
+# The BLS kernels (K7a, K7b), counted in 381-bit products, as the
+# reference's formulas give them: an Fq12 product is 144 Fp products; a
+# Miller step 2 Fq12 products, 3 on the 5 steps with an addition line;
+# the final exponentiation the pair product (npairs - 1), 8 Fq12 products
+# and 6 Frobenius^2 maps (12 Fp products each) in the easy part, 612 Fp
+# products of the Fermat inverse and its norm, then 1,267 squarings and
+# 632 multiplies. One 381-bit product is priced at 12 x 12 32-bit
+# multiply-adds, twice for the reduction, at the rate above (a
+# multiply-add is two operations).
+FP381_OPS = 2 * 2 * 12 * 12
+F12_FP = 144
+BLS_LIMB_BYTES = 49 * 4
+
+
+def _miller_cost(m: int, npairs: int) -> tuple[int, int]:
+    """K7a's (bytes, operations): px, py and four (63, lanes, 2, 49)
+    line arrays in, (lanes, 6, 2, 49) out."""
+    lanes = m * npairs
+    n_bytes = BLS_LIMB_BYTES * lanes * (2 + 4 * 63 * 2 + 12)
+    return n_bytes, lanes * (63 * 2 + 5) * F12_FP * FP381_OPS
+
+
+def _final_exp_chain(npairs: int) -> tuple[int, int]:
+    """One item's serial chain in K7b: (Fq12 products, Fp products)."""
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+
+    f12 = npairs - 1 + 8 + len(BP.HARD_STEP_BITS) + int(BP.HARD_STEP_BITS.sum())
+    return f12, f12 * F12_FP + 6 * 12 + 612
+
+
+def _final_exp_cost(m: int, npairs: int) -> tuple[int, int]:
+    """K7b's (bytes, operations): (m, npairs, 6, 2, 49) in, the bits,
+    (m, 6, 2, 49) and m flags out."""
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+
+    n_bytes = BLS_LIMB_BYTES * 12 * (m * npairs + m) + m + 4 * len(BP.HARD_STEP_BITS)
+    return n_bytes, m * _final_exp_chain(npairs)[1] * FP381_OPS
 
 
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -767,13 +839,19 @@ def _launch_counts(reset: bool = False) -> dict:
     return counts
 
 
-def _require_all_launched(path: str, launches: dict) -> None:
-    missing = [name for name, n in launches.items() if n == 0]
+#: the kernels of the Edwards paths (B1-B3); phase 14 checks K7a and K7b
+EDWARDS_KERNELS = ("fe_mul", "fe_pow22523", "scan_blocks")
+
+
+def _require_all_launched(path: str, launches: dict, names=EDWARDS_KERNELS) -> None:
+    missing = [name for name in names if launches[name] == 0]
     if missing:
         raise AssertionError(f"{path}: {missing} were not launched")
 
 
-def _expect_failure(fn, commit: int, val: int) -> None:
+def _expect_failure(fn, commit: int, val: int):
+    """Run `fn`; it must raise InvalidCommitError naming signature `val` of
+    commit `commit`. Returns the error."""
     from tendermint_tpu_torch.types.validation import InvalidCommitError
 
     try:
@@ -783,8 +861,8 @@ def _expect_failure(fn, commit: int, val: int) -> None:
             raise AssertionError(f"failed_index {getattr(e, 'failed_index', None)}") from e
         if f"index {val}" not in str(e):
             raise AssertionError(f"wrong signature blamed: {e}") from e
-    else:
-        raise AssertionError("a tampered signature verified")
+        return e
+    raise AssertionError("a tampered signature verified")
 
 
 ED_MAIN = "verify_commit_range[ed25519]"
@@ -1732,6 +1810,459 @@ def drive_light(dev, audit: ShapeAudit) -> dict:
     }
 
 
+BLS_MAIN = "bls[aggregate: verify_commit x 4, verify_commit_range]"
+BLS_TAMPERED = "bls[aggregate, tampered]"
+BLS_PERSIG = "bls[per-signature verify_commit_range, hub]"
+BLS_PERSIG_TAMPERED = "bls[per-signature, tampered]"
+
+
+class PairingAudit:
+    """The (items, pairs) shapes the pairing wrappers are given on a path:
+    `recording(path)` wraps bls_pairing.miller (K7a) and final_exp (K7b)
+    and keeps, per kernel and shape, the first inputs given there and the
+    calls on each path."""
+
+    def __init__(self):
+        #: (kernel name, (m, npairs)) -> {"inputs": [...], "calls": {path: n}}
+        self.seen: dict[tuple, dict] = {}
+
+    def shapes(self, path: str) -> list:
+        return sorted((name, shape) for (name, shape), rec in self.seen.items()
+                      if path in rec["calls"])
+
+    @contextlib.contextmanager
+    def recording(self, path: str):
+        from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+
+        real_miller, real_final = BP.miller, BP.final_exp
+
+        def note(kernel, tensors):
+            key = (kernel.name, tuple(tensors[0].shape[:2]))
+            rec = self.seen.get(key)
+            if rec is None:
+                rec = self.seen[key] = {"inputs": [t.clone() for t in tensors], "calls": {}}
+            rec["calls"][path] = rec["calls"].get(path, 0) + 1
+
+        def miller(*tensors):
+            note(BP.MILLER, tensors)
+            return real_miller(*tensors)
+
+        def final_exp(f):
+            note(BP.FINAL_EXP, (f,))
+            return real_final(f)
+
+        BP.miller, BP.final_exp = miller, final_exp
+        try:
+            yield
+        finally:
+            BP.miller, BP.final_exp = real_miller, real_final
+
+
+def build_bls_commits(n_vals: int, n_commits: int) -> dict:
+    """bench_commit_ab's BLS chain shape: `n_vals` bls12381 validators
+    (seed b"ab-bls_aggregate") and `n_commits` full commits, each folded
+    into its aggregate form; the per-signature commits are kept too."""
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.types.block import aggregate_commit
+
+    t0 = time.perf_counter()
+    vals, keys = tt.make_validator_set(n_vals, key_types=("bls12381",), seed=AB_SEED)
+    per_sig, aggs = [], []
+    for h in range(1, n_commits + 1):
+        bid = tt.make_block_id(b"ab%d" % h)
+        c = tt.make_commit(AB_CHAIN_ID, h, 0, bid, vals, keys, timestamp_ns=AB_BASE_TS + h)
+        per_sig.append((vals, bid, h, c))
+        aggs.append((vals, bid, h, aggregate_commit(c, vals)))
+    return {"vals": vals, "keys": keys, "per_sig": per_sig, "aggs": aggs,
+            "build_s": time.perf_counter() - t0}
+
+
+def _bls_host_split() -> dict:
+    """Seconds of the BLS host work by part, summed over the `bls` trace
+    spans in the ring (bls_pairing emits them)."""
+    from tendermint_tpu_torch.libs import trace
+
+    out = {f"{k}_s": 0.0 for k in ("hash_to_curve", "prepare_lines", "pack", "h2d")}
+    for span in trace.RECORDER.dump(subsystem="bls"):
+        out[f"{span['name']}_s"] += span["duration_ms"] / 1e3
+    return out
+
+
+def _bls_pass(dev, run) -> dict:
+    """One timed pass of the aggregate path, traced: the hash-to-curve
+    memo cleared first (bench_commit_ab's cold verify), the host split
+    from the `bls` trace spans, each kernel's device ms and the card's
+    busy time from torch.profiler, and the idle share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+    from tendermint_tpu_torch.crypto import bls_math
+    from tendermint_tpu_torch.libs import trace
+
+    bls_math._H2_MEMO.clear()
+    trace.RECORDER.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        per_call = run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_ms(name=None):
+        return sum(e.time_range.elapsed_us() for e in events
+                   if name is None or name in e.name) / 1e3
+
+    busy_ms = dev_ms()
+    host = _bls_host_split()
+    return {
+        "wall_s": wall,
+        "calls": per_call,
+        "host_split": host,
+        "host_other_s": wall - sum(host.values()) - busy_ms / 1e3,
+        "device_ms": {"bls_miller": dev_ms("bls_miller_kernel"),
+                      "bls_final_exp": dev_ms("bls_final_exp_kernel")},
+        "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / 1e3 / wall,
+    }
+
+
+def _pm1_limbs(dev):
+    import torch
+
+    from tendermint_tpu_torch.crypto import bls_math
+    from tendermint_tpu_torch.crypto.cuda import bls_field as BF
+
+    return torch.from_numpy(BF.int_to_limbs(bls_math.P - 1)).to(dev)
+
+
+def _miller_worst(ins, dev) -> list:
+    """K7a inputs of the same shapes: by flattened lane index mod 3, p - 1
+    in every input, p - 1 with zero lines, or a pad pair."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import bls_field as BF
+
+    pm1 = _pm1_limbs(dev)
+    out = [torch.empty_like(t).copy_(pm1.expand_as(t)) for t in ins]
+    lanes = ins[0].shape[0] * ins[0].shape[1]
+    sel = torch.arange(lanes, device=dev).reshape(ins[0].shape[:2])
+    zero_lines, pad = sel % 3 == 1, sel % 3 == 2
+    for t in out[2:]:
+        t[:, zero_lines | pad] = 0
+    out[0][pad] = 0
+    out[1][pad] = torch.from_numpy(BF.ONE).to(dev)
+    return out
+
+
+def _final_worst(f, dev):
+    """K7b input of the same shape: p - 1 everywhere, every third lane
+    (flattened index mod 3 == 2) one, as a pad pair leaves it."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import bls_field as BF
+
+    out = torch.empty_like(f).copy_(_pm1_limbs(dev).expand_as(f))
+    sel = torch.arange(f.shape[0] * f.shape[1], device=dev).reshape(f.shape[:2])
+    out[sel % 3 == 2] = BF.f12_one((), dev)
+    return out
+
+
+def _hold_bls(kernel, what, run, plain) -> int:
+    """torch.equal of a BLS wrapper and its plain version on the same
+    inputs (both outputs of K7b); returns the largest difference (0)."""
+    import torch
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{kernel.name} ({what}): kernel disagrees with its plain version")
+    return max(int((g.long() - w.long()).abs().max().item()) for g, w in zip(got, want))
+
+
+def _bls_row(kernel, shape, run, plain, cost, reps) -> dict:
+    """A `kernels` row for K7a or K7b at `shape` (m, npairs), timed as the
+    other rows are: the kernel alone (torch.profiler, median of three
+    repeats of `reps` calls), through its wrapper (CUDA events), and its
+    plain version once (CUDA events; it is ~2,000 Fq12 products of
+    PyTorch glue for K7b)."""
+    import torch
+
+    n_bytes, n_ops = cost(*shape)
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    repeats = [_device_ms(run, reps, name=f"{kernel.name}_kernel") for _ in range(3)]
+    wrappers = [_time_ms(run, reps) for _ in range(3)]
+    measured = sorted(r for r in repeats if r is not None)
+    ms = measured[len(measured) // 2] if measured else sorted(wrappers)[1]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain()
+    end.record()
+    torch.cuda.synchronize()
+    return {
+        "name": kernel.name,
+        "m": shape[0] * (shape[1] if kernel.name == "bls_miller" else 1),
+        "shape": list(shape),
+        "route": "cuda",
+        "source": f"tendermint_tpu_torch/crypto/cuda/csrc/{kernel.source}.cu",
+        "replaces": kernel.replaces,
+        "max_abs_err": 0,
+        "match": True,
+        "ms": ms,
+        "ms_source": "profiler" if measured else "cuda_events",
+        "ms_repeats": repeats,
+        "share_of_bound": bound_ms / ms,
+        "wrapper_ms": sorted(wrappers)[1],
+        "wrapper_ms_repeats": wrappers,
+        "plain_ms": start.elapsed_time(end),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_ops": n_ops,
+        "bound_bytes": n_bytes,
+        "library_ms": None,  # no PyTorch call computes a Miller loop or a final exponentiation
+    }
+
+
+def check_bls_kernels(dev, audit: PairingAudit, main_shape) -> tuple[list, dict]:
+    """Phase 14's kernel checks: K7a and K7b torch.equal to their plain
+    versions on the card at every (items, pairs) shape the BLS paths gave
+    them, on the inputs the path gave and on worst-case inputs of the
+    shape; K7b's results against bls_math.final_exp on 2 items of the
+    per-signature bucket. Then a timed row per kernel at `main_shape`."""
+    from tendermint_tpu_torch.crypto import bls_math
+    from tendermint_tpu_torch.crypto.cuda import bls_field as BF
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+
+    held = []
+    for (name, shape), rec in sorted(audit.seen.items()):
+        if name == BP.MILLER.name:
+            for source, ins in (("path", rec["inputs"]), ("worst case", _miller_worst(rec["inputs"], dev))):
+                _hold_bls(BP.MILLER, f"{shape}, {source} inputs",
+                          lambda ins=ins: BP.miller(*ins), lambda ins=ins: BP._miller_plain(*ins))
+        else:
+            (f,) = rec["inputs"]
+            for source, x in (("path", f), ("worst case", _final_worst(f, dev))):
+                _hold_bls(BP.FINAL_EXP, f"{shape}, {source} inputs",
+                          lambda x=x: BP.final_exp(x), lambda x=x: BP._final_exp_plain(x))
+        held.append({"kernel": name, "shape": list(shape), "calls": rec["calls"]})
+
+    def ints(t):
+        c = t.cpu().numpy()
+        return tuple(BF.limbs_to_int(c[i, j]) for i in range(6) for j in range(2))
+
+    # K7b against the pure-Python final exponentiation, 2 items
+    per_sig = [rec for (name, shape), rec in audit.seen.items()
+               if name == BP.FINAL_EXP.name and BLS_PERSIG in rec["calls"]]
+    (f,) = per_sig[0]["inputs"]
+    ok, out = BP.final_exp(f)
+    for item in (0, 1):
+        prod = bls_math.F12_ONE
+        for lane in range(f.shape[1]):
+            prod = bls_math.f12_mul(prod, ints(f[item, lane]))
+        want = bls_math.final_exp(prod)
+        if ints(out[item]) != want or bool(ok[item]) != (want == bls_math.F12_ONE):
+            raise AssertionError(f"bls_final_exp item {item} differs from bls_math.final_exp")
+    vs_math = {"items": 2, "shape": list(f.shape[:2]), "equal": True}
+
+    rows = []
+    for kernel, cost, reps in ((BP.MILLER, _miller_cost, 20), (BP.FINAL_EXP, _final_exp_cost, 10)):
+        (ins,) = [rec["inputs"] for (name, shape), rec in audit.seen.items()
+                  if name == kernel.name and shape == main_shape][:1]
+        if kernel is BP.MILLER:
+            run, plain = (lambda ins=ins: BP.miller(*ins)), (lambda ins=ins: BP._miller_plain(*ins))
+        else:
+            run, plain = (lambda x=ins[0]: BP.final_exp(x)), (lambda x=ins[0]: BP._final_exp_plain(x))
+        row = _bls_row(kernel, main_shape, run, plain, cost, reps)
+        if kernel is BP.FINAL_EXP:
+            f12, fp = _final_exp_chain(main_shape[1])
+            row["serial_chain"] = {"f12_products": f12, "fp_products": fp}
+        rows.append(row)
+    return rows, {"held": held, "final_exp_vs_bls_math": vs_math}
+
+
+def _expect_aggregate_failure(fn) -> None:
+    from tendermint_tpu_torch.types.validation import InvalidCommitError
+
+    try:
+        fn()
+    except InvalidCommitError as e:
+        if str(e) != "aggregate signature verification failed":
+            raise AssertionError(f"tampered aggregate raised {e!r}") from e
+    else:
+        raise AssertionError("a tampered aggregate verified")
+
+
+def drive_bls(dev) -> dict:
+    """Phase 14: bench.py's bench_commit_ab(150, 4), its BLS half, on the
+    port: 4 aggregate commits of 150 bls12381 validators through
+    verify_commit and verify_commit_range with no hub (each check one
+    pairing item of 151 pairs: K7a and K7b at the (2, 256) bucket), the
+    pure-Python floor on one commit, a tampered aggregate, and one
+    per-signature BLS commit through a running hub's "bls" partition (101
+    signatures: the (128, 2) bucket), honest and tampered."""
+    from dataclasses import replace
+
+    from tendermint_tpu_torch.crypto import bls, bls_math, verify_hub
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.types.validation import verify_commit, verify_commit_range
+
+    import gc
+    import threading
+
+    kernels = (BP.MILLER.name, BP.FINAL_EXP.name)
+    host_state = {"threads": sorted(t.name for t in threading.enumerate()),
+                  "gc_objects": len(gc.get_objects()), "gc_counts": gc.get_count()}
+    ab = build_bls_commits(N_VALS, N_AB_COMMITS)
+    print(f"bls: built {N_VALS} validators and {N_AB_COMMITS} aggregate commits in "
+          f"{ab['build_s']:.1f} s")
+    vals, aggs = ab["vals"], ab["aggs"]
+    BP.warmup(device=dev)
+    audit = PairingAudit()
+    trace.configure(enabled=True)  # the host split comes from the `bls` spans
+
+    # the timed passes, no hub (bench.py's): verify_commit on each, then
+    # one verify_commit_range over the 4
+    _launch_counts(reset=True)
+
+    def each():
+        out = []
+        for v, bid, h, agg in aggs:
+            before = _bls_host_split()
+            t0 = time.perf_counter()
+            verify_commit(AB_CHAIN_ID, v, bid, h, agg, device=dev)
+            wall = time.perf_counter() - t0
+            out.append({"height": h, "wall_s": wall,
+                        **{k: x - before[k] for k, x in _bls_host_split().items()}})
+        return out
+
+    with audit.recording(BLS_MAIN):
+        single = _bls_pass(dev, each)
+        ranged = _bls_pass(dev, lambda: verify_commit_range(AB_CHAIN_ID, aggs, device=dev))
+    launches = _launch_counts()
+    shapes = audit.shapes(BLS_MAIN)
+    want_shape = (BP.bucket_items(1), BP.bucket_pairs(N_VALS + 1))
+    if shapes != [(k, want_shape) for k in sorted(kernels)] or \
+            any(launches[k] != 2 * N_AB_COMMITS for k in kernels):
+        raise AssertionError(f"aggregate path: shapes {shapes}, launches {launches}")
+    for k in kernels:
+        if audit.seen[(k, want_shape)]["calls"][BLS_MAIN] != 2 * N_AB_COMMITS:
+            raise AssertionError(f"{k}: {audit.seen[(k, want_shape)]['calls']}")
+
+    # the pure-Python floor (bls.aggregate_verify: the same hashing and
+    # line preparation, then 151 Miller loops and one final
+    # exponentiation in bls_math) against the card's verify_commit on the
+    # same commit, in turns (floor, card, card, floor), the memo cleared
+    # before each: the host's speed drifts within a call
+    v, bid, h, agg = aggs[0]
+    signers = [i for i, cs in enumerate(agg.signatures) if not cs.is_absent()]
+    pubs = [v.validators[i].pub_key for i in signers]
+    msgs = [agg.vote_sign_bytes(AB_CHAIN_ID, i) for i in signers]
+
+    def floor():
+        if not bls.aggregate_verify(pubs, msgs, agg.agg_sig):
+            raise AssertionError("bls.aggregate_verify rejected the honest aggregate")
+
+    turns = []
+    for label, fn in (("floor", floor),
+                      ("card", lambda: verify_commit(AB_CHAIN_ID, v, bid, h, agg, device=dev)),
+                      ("card", lambda: verify_commit(AB_CHAIN_ID, v, bid, h, agg, device=dev)),
+                      ("floor", floor)):
+        bls_math._H2_MEMO.clear()
+        t0 = time.perf_counter()
+        fn()
+        turns.append({"run": label, "wall_s": time.perf_counter() - t0})
+    floor_s = sorted(t["wall_s"] for t in turns if t["run"] == "floor")
+    card_s = sorted(t["wall_s"] for t in turns if t["run"] == "card")
+
+    # the tampered aggregate: one validator signs other bytes
+    _vs, _b, _h, c1 = ab["per_sig"][0]
+    sigs = [cs.signature for cs in c1.signatures]
+    key = ab["keys"][vals.validators[AB_TAMPER_VAL].address]
+    sigs[AB_TAMPER_VAL] = key.sign(b"not the vote")
+    bad = replace(agg, agg_sig=bls.aggregate_signatures(sigs))
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with audit.recording(BLS_TAMPERED):
+        _expect_aggregate_failure(lambda: verify_commit(AB_CHAIN_ID, v, bid, h, bad, device=dev))
+    tampered_s = time.perf_counter() - t0
+    tlaunches = _launch_counts()
+    if any(tlaunches[k] != 1 for k in kernels):
+        raise AssertionError(f"tampered aggregate: launches {tlaunches}")
+
+    # one per-signature BLS commit through a running hub: the "bls"
+    # partition, 101 signatures under the range's light tally
+
+    def per_sig(entry, path, tampered: bool):
+        """The range in a fresh hub (an empty verdict cache); a tampered
+        range must name the commit and the signature."""
+        trace.RECORDER.clear()
+        hub = verify_hub.acquire_hub(device=dev)
+        err = None
+        try:
+            _launch_counts(reset=True)
+            t0 = time.perf_counter()
+            with audit.recording(path):
+                if tampered:
+                    err = _expect_failure(
+                        lambda: verify_commit_range(AB_CHAIN_ID, [entry], device=dev),
+                        0, AB_TAMPER_VAL)
+                else:
+                    verify_commit_range(AB_CHAIN_ID, [entry], device=dev)
+            wall = time.perf_counter() - t0
+            stats = hub.stats()
+        finally:
+            verify_hub.release_hub()
+        if verify_hub.running_hub() is not None:
+            raise AssertionError("release_hub left a running hub")
+        return err, {"wall_s": wall, "dispatches": _dispatch_routes(),
+                     "scheme_bls_sigs": stats["scheme_bls_sigs"],
+                     "scheme_edwards_sigs": stats["scheme_edwards_sigs"],
+                     "cache_hits": stats["cache_hits"], "launches": _launch_counts(),
+                     "shapes": [list(s) for _k, s in audit.shapes(path)]}
+
+    sigs_needed = len(range_items([ab["per_sig"][0]], AB_CHAIN_ID))
+    _err, honest = per_sig(ab["per_sig"][0], BLS_PERSIG, tampered=False)
+    ps_shape = (BP.bucket_items(sigs_needed), 2)
+    if honest["scheme_bls_sigs"] != sigs_needed or honest["dispatches"] != ["cuda"] \
+            or audit.shapes(BLS_PERSIG) != [(k, ps_shape) for k in sorted(kernels)] \
+            or any(honest["launches"][k] != 1 for k in kernels):
+        raise AssertionError(f"per-signature BLS commit: {honest}")
+    bad_entry = tamper(ab["per_sig"], 0, AB_TAMPER_VAL)[0]
+    err, tampered_ps = per_sig(bad_entry, BLS_PERSIG_TAMPERED, tampered=True)
+    if any(tampered_ps["launches"][k] != 1 for k in kernels):
+        raise AssertionError(f"tampered per-signature commit: {tampered_ps}")
+
+    rows, checks = check_bls_kernels(dev, audit, want_shape)
+    n_signers = len(signers)
+    return {
+        "entry": "types.validation.verify_commit / verify_commit_range on aggregate commits "
+                 "(bench.py bench_commit_ab, bls_aggregate), no hub",
+        "device": dev.type,
+        "validators": N_VALS,
+        "commits": N_AB_COMMITS,
+        "pairs_per_check": n_signers + 1,
+        "bucket": list(want_shape),
+        "build_s": ab["build_s"],
+        "host_at_start": host_state,
+        "verify_commit": single,
+        "verify_commit_ms_per_commit": single["wall_s"] / N_AB_COMMITS * 1e3,
+        "verify_sigs_per_s": n_signers * N_AB_COMMITS / single["wall_s"],
+        "verify_commit_range": ranged,
+        "catchup_blocks_per_s": N_AB_COMMITS / ranged["wall_s"],
+        "launches": launches,
+        "floor": {"entry": "crypto.bls.aggregate_verify (pure-Python bls_math), one commit",
+                  "turns": turns, "floor_over_card": (floor_s[0] + floor_s[1]) / (card_s[0] + card_s[1])},
+        "tampered": {"validator": AB_TAMPER_VAL, "wall_s": tampered_s, "launches": tlaunches,
+                     "raised": "aggregate signature verification failed"},
+        "per_signature": {"sigs": sigs_needed, "bucket": list(ps_shape), "honest": honest,
+                          "tampered": {**tampered_ps, "validator": AB_TAMPER_VAL,
+                                       "raised": str(err), "failed_index": err.failed_index}},
+        "kernel_checks": checks,
+        "rows": rows,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1745,6 +2276,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, repo)
     from tendermint_tpu_torch.crypto.cuda import _build
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing  # noqa: F401  (registers K7a, K7b)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -1797,6 +2329,9 @@ def main() -> int:
     print(json.dumps({"blocksync": bs}))
     light = drive_light(dev, audit)
     print(json.dumps({"light": light}))
+    bls = drive_bls(dev)
+    bls_rows = bls.pop("rows")
+    print(json.dumps({"bls": bls}))
 
     by_path = {
         "verify_commit_range[ed25519]": run["launches"],
@@ -1812,12 +2347,16 @@ def main() -> int:
         "light[client, skipping]": light["client_skipping"]["launches"],
         "light[tampered pass]": light["tampered"]["launches"],
         "light[divergence]": light["divergence"]["launches"],
+        BLS_MAIN: bls["launches"],
+        BLS_TAMPERED: bls["tampered"]["launches"],
+        BLS_PERSIG: bls["per_signature"]["honest"]["launches"],
+        BLS_PERSIG_TAMPERED: bls["per_signature"]["tampered"]["launches"],
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
 
     held = audit_shapes(dev, audit, rows, (ED_MAIN, SR_MAIN, BS_MAIN, LC_MAIN))
-    for name in _build.KERNELS:
+    for name in EDWARDS_KERNELS:
         paths = {p for rec in held.get(name, []) for p in rec["calls"]}
         if not {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED, BS_MAIN, LC_MAIN,
                 LC_TAMPERED} <= paths:
@@ -1827,6 +2366,13 @@ def main() -> int:
         row["launches"] = run["launches"][row["name"]]
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
         row.setdefault("main_path_device_ms", bd["ported_kernels_device_ms"][row["name"]])
+    for row in bls_rows:
+        # the BLS path's own main run: the aggregate passes of phase 14
+        row["launches"] = bls["launches"][row["name"]]
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
+        row["main_path_device_ms"] = (bls["verify_commit"]["device_ms"][row["name"]]
+                                      / N_AB_COMMITS)
+        rows.append(row)
 
     print(json.dumps({"slice": run["slice"]}))
     print(json.dumps({"kernels": rows}))

@@ -16,6 +16,8 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define __constant__
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __align__(n) __attribute__((aligned(n)))

@@ -14,7 +14,10 @@ tensors and is held, limb for limb, against its plain PyTorch version:
 B3 on chain counts around its eight chains per block, with an all-511
 chain, a y == x chain and signed limbs; B1 (two operands, a squaring, a
 broadcast constant) and B2 on limbs in [0, 512) and [-511, 512), row 0
-at 511.
+at 511; K7a (bls_miller) and K7b (bls_final_exp) on a 2 x 2 pairing
+batch of real pairs, and on p - 1 in every input, zero lines and pad
+pairs (K7b alone takes about a minute: 144 threads a block, some 9,000
+barriers an item).
 
 --eager runs each cp.async copy when it is issued instead of when its
 group is waited for. --tsan builds with ThreadSanitizer, which reports
@@ -37,7 +40,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parents[1]
 CSRC = ROOT / "tendermint_tpu_torch" / "crypto" / "cuda" / "csrc"
 OUT = ROOT / "build" / "cuda_emu"
-KERNELS = ("scan_blocks", "fe_mul", "fe_pow22523")
+KERNELS = ("scan_blocks", "fe_mul", "fe_pow22523", "bls_miller", "bls_final_exp")
 
 
 def build(flags: list[str], suffix: str) -> None:
@@ -121,6 +124,50 @@ def check(suffix: str) -> bool:
             results.append(torch.equal(out, F._pow22523_plain(a)))
             ok &= all(results)
             print(f"fe_mul (a b, a a, a d), fe_pow22523, m = {m} in [{lo}, 512): {results}")
+    return ok & check_bls(libs)
+
+
+def check_bls(libs) -> bool:
+    """K7a and K7b on a (2 items, 2 pairs) batch: real pairs, and p - 1
+    in every input with zero lines and pad pairs among the lanes."""
+    import torch
+
+    from tendermint_tpu_torch.crypto import bls_math as B
+    from tendermint_tpu_torch.crypto.cuda import bls_field as BF
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+
+    P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    miller = libs["bls_miller"].bls_miller_launch
+    miller.argtypes = [P] * 8 + [I64, I32, P]
+    final = libs["bls_final_exp"].bls_final_exp_launch
+    final.argtypes = [P] * 4 + [I64, I64, I32, I32, P]
+    xbits = torch.from_numpy(BP.X_STEP_BITS)
+    hbits = torch.from_numpy(BP.HARD_STEP_BITS)
+    q = B.hash_to_point_g2(b"emu")
+    items = [[(B.g1_mul(B.G1_GEN, 5), q)], [(B.NEG_G1_GEN, B.g2_mul(q, 3)), (B.g1_mul(B.G1_GEN, 3), q)]]
+    real = [torch.from_numpy(a) for a in BP.prepare_pairing_batch(items, 2, 2)[0]]
+    pm1 = torch.from_numpy(BF.int_to_limbs(B.P - 1))
+    worst = [t.clone() for t in real]
+    for t in worst:
+        t[...] = pm1
+    for t in worst[2:]:
+        t[:, 1] = 0  # item 1: zero lines; lane (1, 1) a pad pair
+    worst[0][1, 1] = 0
+    worst[1][1, 1] = torch.from_numpy(BF.ONE)
+    ok = True
+    for name, ins in (("real pairs", real), ("p - 1, zero lines, a pad pair", worst)):
+        lanes = torch.empty((2, 2, 6, 2, 49), dtype=torch.int32)
+        miller(*(t.data_ptr() for t in ins), xbits.data_ptr(), lanes.data_ptr(), 4, 0, None)
+        want = BP._miller_plain(*ins)
+        equal = torch.equal(lanes, want)
+        okb = torch.empty(2, dtype=torch.bool)
+        out = torch.empty((2, 6, 2, 49), dtype=torch.int32)
+        final(want.data_ptr(), hbits.data_ptr(), okb.data_ptr(), out.data_ptr(), 2, 2,
+              len(hbits), 0, None)
+        want_ok, want_out = BP._final_exp_plain(want)
+        equal_b = torch.equal(out, want_out) and torch.equal(okb, want_ok)
+        ok &= equal and equal_b
+        print(f"bls_miller, bls_final_exp on {name}: {equal}, {equal_b} (ok {okb.tolist()})")
     return ok
 
 

@@ -9,9 +9,7 @@ carry a valid proof of possession or the tx is rejected). App hash is
 the SHA-256 of the deterministic encoding of the full kv state, so two
 replicas agree iff their states agree. Snapshots serialize the state into
 fixed-size chunks keyed by (height, format, chunk). The port's copy of
-tendermint_tpu/abci/kvstore.py: a bls12381 validator tx is rejected as
-a bad pubkey until the BLS port (the reference checks its proof of
-possession)."""
+tendermint_tpu/abci/kvstore.py."""
 
 from __future__ import annotations
 
@@ -217,7 +215,15 @@ class KVStoreApp(BaseApplication):
     @staticmethod
     def _parse_validator_tx(tx: bytes) -> abci.ValidatorUpdate:
         """`val:<hex pubkey>!<power>` (legacy, ed25519) or
-        `val:<keytype>:<hex pubkey>!<power>[!<hex pop>]`."""
+        `val:<keytype>:<hex pubkey>!<power>[!<hex pop>]`.
+
+        bls12381 joins (power > 0) MUST carry a valid proof of
+        possession: rejecting the rogue key HERE — CheckTx keeps it out
+        of mempools, DeliverTx returns code 2 — is what keeps the
+        state/execution.validator_updates_to_validators backstop from
+        ever firing inside apply_block (where a raise would wedge every
+        replica). The app layer is the live PoP-on-update defense; the
+        execution check is the invariant of last resort."""
         body = tx[len(VALIDATOR_TX_PREFIX) :]
         if b"!" not in body:
             raise ValueError("validator tx must be val:<hex pubkey>!<power>")
@@ -239,9 +245,15 @@ class KVStoreApp(BaseApplication):
         from .. import crypto
 
         try:
-            crypto.pubkey_from_type_and_bytes(key_type, pub_key)
+            pub = crypto.pubkey_from_type_and_bytes(key_type, pub_key)
         except Exception as e:
             raise ValueError(f"bad validator pubkey: {e}") from None
+        if power > 0 and key_type == "bls12381":
+            if not pop or not pub.pop_verify(pop):
+                raise ValueError(
+                    "bls12381 validator join without a valid proof of "
+                    "possession"
+                )
         return abci.ValidatorUpdate(key_type, pub_key, power, pop)
 
     # -- snapshots --------------------------------------------------------

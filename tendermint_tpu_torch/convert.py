@@ -21,8 +21,12 @@ the port), so a chain built by one package replays in the other:
   light_block, signed_header     LightBlock, SignedHeader
   evidence                       DuplicateVote / LightClientAttack evidence
 
-and evidence back (`evidence_to(ev, decode_evidence)`, with the other
-package's decoder passed in, so this module imports nothing of it).
+and back: `to_reference(obj, ref_cls)` for any of those types (with the
+reference's class passed in), `evidence_to(ev, decode_evidence)` for
+evidence (with the other package's decoder), so this module imports
+nothing of the reference. Every key type crosses, bls12381 validator
+sets, aggregate commits and genesis docs with proofs of possession
+included.
 """
 
 from __future__ import annotations
@@ -151,3 +155,12 @@ def evidence_to(ev, decode_evidence):
     reference's `types.evidence.decode_evidence` to carry the port's
     evidence back)."""
     return decode_evidence(ev.encode())
+
+
+def to_reference(obj, ref_cls):
+    """One of the port's wire types (Block, Commit, ValidatorSet, State,
+    LightBlock, SignedHeader; GenesisDoc through its JSON) -> the
+    reference's `ref_cls`, decoded from the bytes both packages share."""
+    if hasattr(ref_cls, "from_json"):
+        return ref_cls.from_json(obj.to_json())
+    return ref_cls.decode(obj.encode())

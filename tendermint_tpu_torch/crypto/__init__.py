@@ -4,8 +4,9 @@ The port's copy of `tendermint_tpu.crypto` (reference crypto/crypto.go:22-54):
 `PubKey`, `PrivKey` and the two-method `BatchVerifier` (`add`, `verify`)
 that the commit-verification funnel gates on. The CUDA implementation
 registers behind the same interface (crypto/cuda/). Key types: ed25519
-and sr25519 (both batch on the card), secp256k1 (host verification, as
-in the reference); BLS is not ported yet.
+and sr25519 (both batch on the card through the Edwards batch
+equation), bls12381 (batched and aggregate checks through the pairing
+kernels) and secp256k1 (host verification, as in the reference).
 """
 
 from __future__ import annotations
@@ -80,6 +81,7 @@ _BUILTIN_KEY_MODULES = {
     "ed25519": "ed25519",
     "secp256k1": "secp256k1",
     "sr25519": "sr25519",
+    "bls12381": "bls",
 }
 
 

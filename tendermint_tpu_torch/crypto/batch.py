@@ -2,21 +2,32 @@
 and of tendermint_tpu/crypto/batch.py).
 
 `create_batch_verifier(pub_key, device=...)` returns an
-`AdaptiveBatchVerifier` for the key types that batch (ed25519 and
-sr25519, which share the card's batch equation). It routes each batch by
-size: from `MIN_TPU_BATCH` signatures up through `kernel_eq` on the
-device (route "cuda"), below it to the host one signature at a time
-(route "cpu"), where the card's fixed cost per call would exceed the
-host's time for the same signatures. secp256k1 does not batch (as in the
-reference); callers verify it signature by signature.
+`AdaptiveBatchVerifier` for the key types that batch: ed25519 and
+sr25519, which share the card's batch equation, and bls12381, which
+batches through the pairing kernels. Its `verify` partitions a batch by
+scheme:
+
+  * Edwards (ed25519/sr25519): from `MIN_TPU_BATCH` signatures up
+    through `kernel_eq` on the device (route "cuda"), below it on the
+    host one signature at a time (route "cpu"), where the card's fixed
+    cost per call would exceed the host's time for the same signatures;
+  * BLS: two or more signatures through the pairing kernels on the
+    verifier's device (`bls_pairing.verify_items`, route "cuda"), a lone
+    one on the host (route "cpu").
+
+`bls_aggregate_verify` runs one aggregate-commit check as one pairing
+item on the device. secp256k1 does not batch (as in the reference);
+callers verify it signature by signature.
 
 What the reference has and the port does not: a background probe that
-warms the backend and measures the cutoff, and a breaker with a host
-re-verify on device error. Here the device is usable as soon as
+warms the backend and measures the cutoff, a breaker with a host
+re-verify on device error, and the opt-in switch (TMTPU_BLS_TPU) in
+front of the BLS device path. Here the device is usable as soon as
 `device=` resolves; `MIN_TPU_BATCH` stays at its default (32, or
-TMTPU_MIN_TPU_BATCH) until `_measure_cutoff(device)` is called; and a
-device error propagates to the caller. `CPUBatchVerifier` is the host
-floor the device path is measured against.
+TMTPU_MIN_TPU_BATCH) until `_measure_cutoff(device)` is called; the
+verifier's device routes BLS as it routes `kernel_eq`; and a device
+error propagates to the caller. `CPUBatchVerifier` is the host floor the
+device path is measured against.
 """
 
 from __future__ import annotations
@@ -30,8 +41,11 @@ from . import BatchVerifier, PubKey
 from .ed25519 import KEY_TYPE as ED25519
 from .sr25519 import KEY_TYPE as SR25519
 
+BLS12381 = "bls12381"
 #: key types sharing the Edwards-curve batch equation (one device dispatch)
 _EDWARDS = (ED25519, SR25519)
+#: key types the adaptive verifier takes (BLS runs the pairing kernels)
+_BATCHABLE = _EDWARDS + (BLS12381,)
 
 logger = logging.getLogger("crypto.batch")
 
@@ -147,41 +161,90 @@ def _measure_cutoff(device=DEFAULT_DEVICE) -> dict | None:
 
 
 class AdaptiveBatchVerifier(BatchVerifier):
-    """Collects ed25519/sr25519 entries and routes the batch by size: to
-    `kernel_eq` on `device` from MIN_TPU_BATCH signatures up, else to the
-    host. A device error is counted (`libs.metrics.RESILIENCE`) and
-    raised; nothing re-verifies on the host. The reference's BLS
-    partition waits for the BLS port."""
+    """Collects ed25519/sr25519/bls12381 entries and verifies each scheme's
+    partition on its own: Edwards by size (`kernel_eq` on `device` from
+    MIN_TPU_BATCH signatures up, else the host), BLS through the pairing
+    kernels on `device` from two signatures up. A device error is counted
+    (`libs.metrics.RESILIENCE`) and raised; nothing re-verifies on the
+    host."""
 
     def __init__(self, device=DEFAULT_DEVICE, *, rand_bytes=None):
         self._device = resolve(device)
         self._rand_bytes = rand_bytes
         self._items: list[tuple[PubKey, bytes, bytes]] = []
-        #: where the last verify() ran ("cuda" or "cpu"); the VerifyHub
-        #: stamps it on its dispatch spans
+        #: where the last verify() ran ("cuda", "cpu", or "mixed" when the
+        #: scheme partitions took different routes); the VerifyHub stamps
+        #: it on its dispatch spans
         self.last_route = "cpu"
 
     def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
-        if pub_key.TYPE not in _EDWARDS:
+        if pub_key.TYPE not in _BATCHABLE:
             raise ValueError(
-                f"adaptive batch verifier supports {_EDWARDS}, got {pub_key.TYPE!r}"
+                f"adaptive batch verifier supports {_BATCHABLE}, got {pub_key.TYPE!r}"
             )
         self._items.append((pub_key, msg, sig))
 
     def verify(self) -> tuple[bool, list[bool]]:
         items = self._items
-        if items and len(items) >= MIN_TPU_BATCH:
-            try:
-                out = self._run(self._make_device_verifier(), items)
-            except Exception:
-                record_resilience("device_error_batches")
-                record_resilience("device_error_sigs", len(items))
-                raise
-            self.last_route = "cuda"
-        else:
-            out = self._run(CPUBatchVerifier(), items)
-            self.last_route = "cpu"
-        return out
+        results = [False] * len(items)
+        routes = []
+        for part, run in ((_EDWARDS, self._verify_edwards), ((BLS12381,), self._verify_bls)):
+            idxs = [i for i, it in enumerate(items) if it[0].TYPE in part]
+            if not idxs:
+                continue
+            out, route = run([items[i] for i in idxs])
+            for i, ok in zip(idxs, out):
+                results[i] = ok
+            routes.append(route)
+        self.last_route = routes[0] if len(set(routes)) == 1 else ("mixed" if routes else "cpu")
+        return all(results) and bool(results), results
+
+    @staticmethod
+    def _on_device(run, items) -> tuple[list[bool], str]:
+        try:
+            return run(items), "cuda"
+        except Exception:
+            record_resilience("device_error_batches")
+            record_resilience("device_error_sigs", len(items))
+            raise
+
+    def _verify_edwards(self, items) -> tuple[list[bool], str]:
+        if len(items) >= MIN_TPU_BATCH:
+            return self._on_device(
+                lambda its: self._run(self._make_device_verifier(), its)[1], items
+            )
+        return self._run(CPUBatchVerifier(), items)[1], "cpu"
+
+    def _verify_bls(self, items) -> tuple[list[bool], str]:
+        """The BLS partition (reference batch.py:397): the pairing kernels
+        for two or more signatures, host verification for a lone one."""
+        if len(items) >= 2:
+            return self._on_device(self._run_bls_kernel, items)
+        return [pk.verify_signature(msg, sig) for pk, msg, sig in items], "cpu"
+
+    def _run_bls_kernel(self, items) -> list[bool]:
+        """Decode and subgroup-check through the bls point caches, then one
+        pairing batch; undecodable entries are False without a slot."""
+        from . import bls as bls_keys
+        from .cuda import bls_pairing
+
+        results = [False] * len(items)
+        triples = []
+        idxs = []
+        for i, (pk, msg, sig) in enumerate(items):
+            if len(sig) != bls_keys.SIGNATURE_SIZE:
+                continue
+            pt = bls_keys.pubkey_point(pk.bytes())
+            sp = bls_keys.signature_point(bytes(sig))
+            if pt is None or sp is None:
+                continue
+            triples.append((pt, msg, sp))
+            idxs.append(i)
+        if triples:
+            ok = bls_pairing.verify_items(triples, device=self._device)
+            for i, good in zip(idxs, ok):
+                results[i] = bool(good)
+        return results
 
     def _make_device_verifier(self) -> BatchVerifier:
         from .cuda.verify import DeviceBatchVerifier
@@ -195,14 +258,51 @@ class AdaptiveBatchVerifier(BatchVerifier):
         return target.verify()
 
 
+def bls_aggregate_verify(
+    pub_keys: list, msgs: list[bytes], agg_sig: bytes, device=DEFAULT_DEVICE
+) -> bool:
+    """Aggregate-commit verification (reference batch.py:501): the whole
+    check is ONE multi-pair pairing-product item, run through the pairing
+    kernels on `device`, with the reference's reject surface and its
+    bls.STATS counters. Callers outside crypto/ go through
+    crypto/verify_hub.verify_aggregate (verdict cache)."""
+    from . import bls, bls_math
+    from .cuda import bls_pairing
+
+    dev = resolve(device)
+    bls.STATS["aggregate_verifies"] += 1
+    bls.STATS["aggregate_signers"] += len(pub_keys)
+    agg = bls.signature_point(bytes(agg_sig)) if len(agg_sig) == bls.SIGNATURE_SIZE else None
+    pts = [
+        bls.pubkey_point(pk.bytes()) if getattr(pk, "TYPE", None) == bls.KEY_TYPE else None
+        for pk in pub_keys
+    ]
+    if agg is None or not pts or len(pts) != len(msgs) or any(p is None for p in pts):
+        bls.STATS["aggregate_failures"] += 1
+        return False
+    item = [(bls_math.NEG_G1_GEN, agg)] + list(zip(pts, bls_pairing.hash_to_g2(msgs)))
+    ok = bool(
+        bls_pairing.verify_pairs_batch(
+            [item],
+            pad_to=bls_pairing.bucket_items(1),
+            pair_pad=bls_pairing.bucket_pairs(len(item)),
+            device=dev,
+        )[0]
+    )
+    if not ok:
+        bls.STATS["aggregate_failures"] += 1
+    return ok
+
+
 def supports_batch_verifier(pub_key: PubKey) -> bool:
     """ed25519 and sr25519 batch through the card's batch equation
-    (reference crypto/batch/batch.go:26 — same two types). secp256k1 does
-    not batch (single verification)."""
-    return pub_key.TYPE in _EDWARDS
+    (reference crypto/batch/batch.go:26 — same two types), bls12381
+    through the pairing kernels. secp256k1 does not batch (single
+    verification)."""
+    return pub_key.TYPE in _BATCHABLE
 
 
 def create_batch_verifier(pub_key: PubKey, device=DEFAULT_DEVICE, *, rand_bytes=None):
-    if pub_key.TYPE in _EDWARDS:
+    if pub_key.TYPE in _BATCHABLE:
         return AdaptiveBatchVerifier(device, rand_bytes=rand_bytes)
     raise ValueError(f"key type {pub_key.TYPE!r} does not support batch verification")

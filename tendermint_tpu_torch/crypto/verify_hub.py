@@ -9,7 +9,9 @@ device-sized batches and runs one batched verify per dispatch through
 `create_batch_verifier(pub_key, device)`, so the measured size cutoff
 applies unchanged: a dispatch of at least `batch.MIN_TPU_BATCH`
 signatures runs `kernel_eq` on the card (route "cuda"), a smaller one
-runs on the host (route "cpu").
+runs on the host (route "cpu"). Each dispatch is partitioned by scheme:
+ed25519/sr25519 ("edwards") and bls12381 ("bls", the pairing kernels)
+never share a verifier.
 
 Scheduling model (one dispatcher thread + one device-runner thread):
 
@@ -50,10 +52,13 @@ Differences from the reference, by design:
     constructor, with `VerifyHubConfig`'s defaults; the reference's
     TMTPU_VERIFYHUB_* env overrides wait for the node config that
     reads them;
-  * not ported yet: the verifyd remote route (with crypto/verifyd.py),
-    mesh scaling (the batch capacity is `max_batch` on one device),
-    `verify_aggregate` and the BLS partition (with BLS), and per-tenant
-    packing stats (verifyd).
+  * `verify_aggregate` runs the pairing check on the caller's device
+    (the hub lends only its verdict cache), as the reference runs it on
+    the caller's thread;
+  * not ported yet: the verifyd remote route (with crypto/verifyd.py,
+    for per-signature batches and aggregates alike), mesh scaling (the
+    batch capacity is `max_batch` on one device), and per-tenant packing
+    stats (verifyd).
 """
 
 
@@ -198,9 +203,10 @@ class VerifyHub:
             "lane_live_dispatched": 0.0,
             "lane_backfill_dispatched": 0.0,
             "lane_promotions": 0.0,  # backfill entries pulled into live
-            # signatures dispatched to the Edwards batch equation
-            # (ed25519/sr25519); the reference's BLS scheme waits for BLS
+            # per-scheme dispatch accounting: ed25519/sr25519 share the
+            # Edwards batch equation, bls12381 runs the pairing kernels
             "scheme_edwards_sigs": 0.0,
+            "scheme_bls_sigs": 0.0,
         }
 
     # -- lifecycle -------------------------------------------------------
@@ -394,6 +400,27 @@ class VerifyHub:
 
     # -- introspection ---------------------------------------------------
 
+    # -- out-of-band verdict cache (aggregate commits) --------------------
+
+    def cached_verdict(self, key: tuple):
+        """Consult the verdict LRU for a non-triple key (the aggregate
+        commit path: one indivisible pairing-product check has nothing to
+        micro-batch, but gossip re-verifications still dedup)."""
+        with self._cv:
+            v = self._cache.get(key)
+            if v is not None:
+                self._cache.move_to_end(key)
+                self._stats["cache_hits"] += 1
+            return v
+
+    def store_verdict(self, key: tuple, ok: bool) -> None:
+        with self._cv:
+            if self.cache_size:
+                self._cache[key] = ok
+                self._cache.move_to_end(key)
+                while len(self._cache) > self.cache_size:
+                    self._cache.popitem(last=False)
+
     def latency_snapshot(self) -> tuple[list[int], float, int]:
         """Consistent copy of the queue-latency histogram internals
         (observe() runs under the same lock in the dispatcher)."""
@@ -563,34 +590,41 @@ class VerifyHub:
                     f.set_result(ok)
 
     def _verify_batch(self, batch: list[_Pending]) -> list[bool]:
-        """One batched verify per dispatch: the batchable key types
-        (ed25519/sr25519, one Edwards partition) go to one
-        AdaptiveBatchVerifier on the hub's device (device/host routing by
-        size lives there); anything unbatchable (secp256k1), and a lone
-        batchable signature, verifies on the host."""
+        """One batched verify per scheme per dispatch (reference
+        verify_hub.py:735): the batchable key types are partitioned by
+        scheme, ed25519/sr25519 ("edwards") and bls12381 ("bls"), and each
+        partition goes to its own AdaptiveBatchVerifier on the hub's
+        device (device/host routing by size lives there); anything
+        unbatchable (secp256k1), and a partition of one signature,
+        verifies on the host."""
         results = [False] * len(batch)
-        idxs: list[int] = []
+        groups: dict[str, list[int]] = {}
         for i, p in enumerate(batch):
             if supports_batch_verifier(p.pub_key):
-                idxs.append(i)
+                scheme = "bls" if p.pub_key.TYPE == "bls12381" else "edwards"
+                groups.setdefault(scheme, []).append(i)
             else:
                 results[i] = p.pub_key.verify_signature(p.msg, p.sig)
         # where this batch ran, for the dispatch/execute spans: set per
         # worker thread, and "cpu" on the host-side paths
         self._route_local.route = "cpu"
-        if idxs:
+        if groups:
             with self._cv:
-                self._stats["scheme_edwards_sigs"] += len(idxs)
-        if len(idxs) == 1:
-            p = batch[idxs[0]]
-            results[idxs[0]] = p.pub_key.verify_signature(p.msg, p.sig)
-        elif idxs:
+                for scheme, idxs in groups.items():
+                    self._stats[f"scheme_{scheme}_sigs"] += len(idxs)
+        for idxs in groups.values():
+            if len(idxs) == 1:
+                p = batch[idxs[0]]
+                results[idxs[0]] = p.pub_key.verify_signature(p.msg, p.sig)
+                continue
             bv = create_batch_verifier(batch[idxs[0]].pub_key, self.device)
             for i in idxs:
                 p = batch[i]
                 bv.add(p.pub_key, p.msg, p.sig)
             _ok, bitmap = bv.verify()
-            self._route_local.route = bv.last_route
+            if bv.last_route != "cpu" or len(groups) == 1:
+                # a mixed dispatch that reached the device reads as such
+                self._route_local.route = bv.last_route
             for i, good in zip(idxs, bitmap):
                 results[i] = bool(good)
         return results
@@ -668,3 +702,42 @@ def verify_one(
     if hub is None:
         return pub_key.verify_signature(msg, sig)
     return hub.verify_sync(pub_key, msg, sig, lane=lane)
+
+
+def aggregate_cache_key(pub_keys: list, msgs: list[bytes], agg_sig: bytes) -> tuple:
+    """Verdict-LRU key for one aggregate-commit check (the reference's key,
+    verify_hub.py:881)."""
+    return (
+        "bls-aggregate",
+        sha256(
+            b"".join(
+                len(x).to_bytes(4, "big") + x
+                for x in [pk.bytes() for pk in pub_keys] + [bytes(m) for m in msgs]
+            )
+        ),
+        bytes(agg_sig),
+    )
+
+
+def verify_aggregate(
+    pub_keys: list, msgs: list[bytes], agg_sig: bytes, *, device=DEFAULT_DEVICE
+) -> bool:
+    """THE aggregate-commit chokepoint (types/validation routes every
+    aggregate `verify_commit*` here): one G2 aggregate signature checked
+    against per-signer messages through a single pairing product, on the
+    caller's thread and `device` (crypto/batch.bls_aggregate_verify). The
+    running hub's verdict LRU answers re-verifications of the same commit
+    without pairing again."""
+    from .batch import bls_aggregate_verify
+
+    dev = resolve(device)
+    key = aggregate_cache_key(pub_keys, msgs, agg_sig)
+    hub = running_hub()
+    if hub is not None:
+        hit = hub.cached_verdict(key)
+        if hit is not None:
+            return hit
+    ok = bls_aggregate_verify(pub_keys, msgs, agg_sig, dev)
+    if hub is not None:
+        hub.store_verdict(key, ok)
+    return ok

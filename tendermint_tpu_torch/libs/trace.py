@@ -11,6 +11,10 @@ subsystem, name, start, duration, attrs)``. The hub records two kinds:
   * ``hub.queue`` / ``hub.execute`` / ``hub.cache_hit`` — per request
     that carries a `TraceCtx` (`record`), timed on that trace's clock.
 
+The BLS pairing path (crypto/cuda/bls_pairing.py) emits its host time
+by part, per pairing batch: ``bls.hash_to_curve``, ``bls.prepare_lines``,
+``bls.pack`` and ``bls.h2d``.
+
 Spans live in the injectable Clock's monotonic domain
 (`libs/clock.Clock.monotonic`) and never read the wall clock. Recording
 appends one tuple to a `deque(maxlen=N)`: nothing here locks or waits,

@@ -46,9 +46,18 @@ def validator_updates_to_validators(
             raise ValueError(
                 f"validator pubkey type {u.pub_key_type} not allowed by params"
             )
-        # bls12381 keys (which need a proof of possession) wait for the
-        # BLS port: the key registry refuses them here
         pub = crypto.pubkey_from_type_and_bytes(u.pub_key_type, u.pub_key)
+        if u.power > 0 and u.pub_key_type == "bls12381":
+            # rogue-key defense must hold at EVERY entry point into the
+            # validator set, not just genesis: an unproven BLS key in an
+            # aggregate position could be a rogue combination of honest
+            # keys (timestamps are attacker-chosen in a forged commit,
+            # so the distinct-message assumption cannot be relied on)
+            if not u.pop or not pub.pop_verify(u.pop):
+                raise ValueError(
+                    "bls12381 validator update without a valid proof of "
+                    "possession"
+                )
         out.append(Validator(pub, u.power))
     return out
 

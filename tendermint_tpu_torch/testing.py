@@ -49,6 +49,10 @@ def make_validator_set(
             from .crypto.sr25519 import Sr25519PrivKey
 
             keys.append(Sr25519PrivKey(secret))
+        elif kt == "bls12381":
+            from .crypto.bls import BLSPrivKey
+
+            keys.append(BLSPrivKey(secret))
         else:
             raise ValueError(f"unknown key type {kt}")
     vals = ValidatorSet([Validator(k.pub_key(), power) for k in keys])

@@ -9,7 +9,7 @@ separate "proto" layer, the canonical encoding IS the wire format.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 from ..crypto.hashes import HASH_SIZE
 from ..crypto import merkle
@@ -219,10 +219,10 @@ class Commit:
     the flags ARE the signer bitmap (absent vs commit vs nil), the
     timestamps rebuild each signer's distinct sign-bytes. A
     150-validator commit shrinks from ~150 x 96 signature bytes to one,
-    at the cost of pairing-heavy verification. The port keeps the wire
-    field, so encodings and hashes are byte-identical to the reference;
-    building and verifying aggregate commits waits for the BLS port
-    (commit verification raises on one)."""
+    at the cost of pairing-heavy verification. Conversion is pure data
+    transformation (`aggregate_commit` below): BLS signatures aggregate
+    publicly, so the proposer aggregates the very sigs the validators
+    gossiped."""
 
     height: int
     round: int
@@ -312,6 +312,45 @@ class Commit:
                     participating += 1
             if aggregate and participating == 0:
                 raise ValueError("aggregate commit with no participating signers")
+
+
+def aggregate_commit(commit: Commit, vals) -> Commit:
+    """Convert a fully-signed commit into the aggregate wire variant:
+    every non-absent precommit signature (commit AND nil votes — both
+    are part of the attested history) folds into one G2 aggregate, and
+    the per-validator entries keep flag/address/timestamp only.
+
+    Pure data transformation — BLS signatures aggregate publicly, no
+    re-signing. Raises ValueError when any participating signer's key
+    is not BLS (mixed-scheme sets keep the per-sig wire form; the
+    caller falls back) or when the commit is unsigned. Deterministic:
+    the aggregate is a fixed-index-order point sum, so same votes in =>
+    byte-identical aggregate commit out (the chaos bit-reproducibility
+    surface)."""
+    from ..crypto import bls
+
+    if commit.is_aggregate():
+        return commit
+    sigs: list[bytes] = []
+    stripped: list[CommitSig] = []
+    for idx, cs in enumerate(commit.signatures):
+        if cs.is_absent():
+            stripped.append(cs)
+            continue
+        val = vals.get_by_index(idx)
+        if val is None or val.pub_key.TYPE != bls.KEY_TYPE:
+            raise ValueError(
+                f"cannot aggregate commit: validator {idx} is not bls12381"
+            )
+        sigs.append(cs.signature)
+        stripped.append(replace(cs, signature=b""))
+    if not sigs:
+        raise ValueError("cannot aggregate a commit with no signatures")
+    return replace(
+        commit,
+        signatures=tuple(stripped),
+        agg_sig=bls.aggregate_signatures(sigs),
+    )
 
 
 @dataclass(frozen=True)

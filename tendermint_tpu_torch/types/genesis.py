@@ -44,11 +44,25 @@ class GenesisDoc:
         )
 
     def _check_pops(self) -> None:
-        """bls12381 validators need a verified proof of possession, and
-        BLS is not ported: a genesis doc naming one is refused."""
+        """Rogue-key defense: every bls12381 genesis validator must
+        prove possession of its secret key before the set is
+        constructed — an unproven key in an aggregate position could be
+        a rogue-key combination of honest keys. (Per-validator verify
+        results are memoized in crypto/bls, so multi-node in-process
+        tests pay the pairing once per key.)"""
         for gv in self.validators:
-            if gv.pub_key.TYPE == "bls12381":
-                raise ValueError("bls12381 validators wait for the BLS port")
+            if gv.pub_key.TYPE != "bls12381":
+                continue
+            if not gv.pop:
+                raise ValueError(
+                    f"bls12381 genesis validator {gv.name or gv.pub_key!r} "
+                    "missing proof of possession"
+                )
+            if not gv.pub_key.pop_verify(gv.pop):
+                raise ValueError(
+                    f"bls12381 genesis validator {gv.name or gv.pub_key!r} "
+                    "has an invalid proof of possession"
+                )
 
     def validate_basic(self) -> None:
         if not self.chain_id or len(self.chain_id) > 50:

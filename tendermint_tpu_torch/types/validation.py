@@ -18,8 +18,11 @@ BATCH_VERIFY_THRESHOLD signatures, each funnels its signatures into one
 through `create_batch_verifier(pub_key, device)` — either way the
 adaptive verifier sends a batch of at least `batch.MIN_TPU_BATCH`
 signatures to `kernel_eq` (one launch per ≤8,192 signatures) and a
-smaller one to the host. Other sets (secp256k1, mixed) verify one by one
-through `verify_one`. All take `device=` ("cuda" by default; "cpu" on
+smaller one to the host; a bls12381 set's signatures go to the pairing
+kernels. Other sets (secp256k1, mixed) verify one by one through
+`verify_one`. An aggregate commit (one BLS G2 signature for every signer)
+is one pairing-product check through `verify_hub.verify_aggregate`, in a
+range one commit at a time. All take `device=` ("cuda" by default; "cpu" on
 request; raise without a card unless the CPU was asked for) and `lane=`
 (the hub's scheduler lane). Error surface and `failed_index` match the
 reference.
@@ -155,9 +158,8 @@ def _verify(
     chain_id, vals, commit, voting_power_needed, count_all_signatures, lookup_by_index, dev, lane
 ):
     if commit.is_aggregate():
-        # one BLS pairing-product check in the reference
-        raise NotImplementedError("aggregate (BLS) commits wait for the BLS port")
-    if _should_batch_verify(vals, commit):
+        _verify_aggregate(chain_id, vals, commit, voting_power_needed, lookup_by_index, dev)
+    elif _should_batch_verify(vals, commit):
         _verify_batch(
             chain_id, vals, commit, voting_power_needed, count_all_signatures,
             lookup_by_index, dev, lane,
@@ -189,6 +191,66 @@ def _iter_entries(vals: ValidatorSet, commit: Commit, lookup_by_index: bool):
                 raise InvalidCommitError("double vote from same address")
             seen.add(cs.validator_address)
         yield idx, cs, val
+
+
+def _verify_aggregate(chain_id, vals, commit, voting_power_needed, lookup_by_index, dev) -> None:
+    """Aggregate-commit verification: ONE pairing-product check covers
+    every non-absent signer (commit AND nil votes — the aggregate is
+    indivisible, so light semantics cannot skip nil signatures; the
+    tally still counts only block votes). Routed through the
+    crypto/verify_hub.verify_aggregate chokepoint (verdict cache, the
+    pairing kernels on `dev`). Accept/reject surface matches the
+    per-signature paths: a forged signer, a wrong bitmap flag, or a
+    non-BLS key in an included slot all reject."""
+    from ..crypto.bls import KEY_TYPE as BLS_KEY_TYPE
+    from ..crypto.verify_hub import verify_aggregate
+
+    tallied = 0
+    pubs = []
+    msgs = []
+    seen: set[bytes] = set()
+    for idx, cs in enumerate(commit.signatures):
+        if cs.is_absent():
+            continue
+        if lookup_by_index:
+            val = vals.get_by_index(idx)
+            if val is None:
+                raise InvalidCommitError(f"no validator at index {idx}")
+        else:
+            # trusting mode: EVERY included signer must resolve in the
+            # trusted set — an aggregate cannot be verified minus the
+            # signers the light client doesn't know
+            _, val = vals.get_by_address(cs.validator_address)
+            if val is None:
+                raise InvalidCommitError(
+                    f"aggregate commit signer at index {idx} unknown to the "
+                    "trusted validator set (aggregate cannot be partially "
+                    "verified)"
+                )
+            if cs.validator_address in seen:
+                raise InvalidCommitError("double vote from same address")
+            seen.add(cs.validator_address)
+        if val.pub_key.TYPE != BLS_KEY_TYPE:
+            raise InvalidCommitError(
+                f"aggregate commit includes non-BLS signer at index {idx}"
+            )
+        if cs.signature:
+            raise InvalidCommitError(
+                f"aggregate commit carries a per-validator signature at "
+                f"index {idx}"
+            )
+        pubs.append(val.pub_key)
+        msgs.append(commit.vote_sign_bytes(chain_id, idx))
+        if cs.is_commit():
+            tallied += val.voting_power
+    if tallied <= voting_power_needed:
+        raise InvalidCommitError(
+            f"insufficient voting power: got {tallied}, need > {voting_power_needed}"
+        )
+    if not pubs:
+        raise InvalidCommitError("no signatures to verify")
+    if not verify_aggregate(pubs, msgs, commit.agg_sig, device=dev):
+        raise InvalidCommitError("aggregate signature verification failed")
 
 
 def _verify_batch(
@@ -275,7 +337,8 @@ def verify_commit_range(
         try:
             _basic_commit_checks(vals, block_id, height, commit)
             if commit.is_aggregate() or not _should_batch_verify(vals, commit):
-                # aggregate commits raise there; mixed and secp256k1 sets
+                # an aggregate commit is one indivisible pairing product
+                # (verdict-cached in the hub); mixed and secp256k1 sets
                 # verify one by one
                 verify_commit_light(
                     chain_id, vals, block_id, height, commit, device=dev, lane=lane

@@ -252,9 +252,19 @@ def test_aggregate_commit_keeps_its_wire_bytes_and_refuses_verification(chains):
     )
     from tendermint_tpu.types.block import Commit as JCommit
 
+    from tendermint_tpu.types import validation as jvalidation
+
     assert JCommit.decode(agg.encode()).hash() == agg.hash()
     assert agg.hash() != pcommit.hash()
-    with pytest.raises(NotImplementedError, match="BLS"):
+    # an aggregate over this ed25519 set is refused before any pairing,
+    # with the reference's message
+    _, _, jcommit, jstate = chains["ref"][3]
+    with pytest.raises(jvalidation.InvalidCommitError) as jerr:
+        jvalidation.verify_commit(
+            CHAIN, jstate.last_validators, jcommit.block_id, 3, JCommit.decode(agg.encode())
+        )
+    with pytest.raises(validation.InvalidCommitError, match="non-BLS signer") as err:
         validation.verify_commit(
             CHAIN, pstate.last_validators, pcommit.block_id, 3, agg, device="cpu"
         )
+    assert str(err.value) == str(jerr.value)

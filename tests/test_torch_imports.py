@@ -61,7 +61,7 @@ def test_whole_port_imports_with_jax_blocked():
         "    importlib.import_module(m)\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "from tendermint_tpu_torch.crypto.cuda import _build\n"
-        "assert sorted(_build.KERNELS) == ['fe_mul', 'fe_pow22523', 'scan_blocks']\n"
+        "assert sorted(_build.KERNELS) == ['bls_final_exp', 'bls_miller', 'fe_mul', 'fe_pow22523', 'scan_blocks']\n"
         "assert not _build._libs and all(k.launches == 0 for k in _build.KERNELS.values())\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -140,10 +140,50 @@ FUNNEL_MODULES = [
 ]
 
 
+BLS_MODULES = [
+    "tendermint_tpu_torch.crypto.bls",
+    "tendermint_tpu_torch.crypto.bls_math",
+    "tendermint_tpu_torch.crypto.cuda.bls_field",
+    "tendermint_tpu_torch.crypto.cuda.bls_pairing",
+]
+
+
 def test_scan_and_blocked_import_cover_the_funnel_modules():
     """The AST scan and the jax-blocked import above walk every module of
-    the package; the verification funnel's modules are among them."""
-    assert set(FUNNEL_MODULES) <= set(_port_modules())
+    the package; the verification funnel's and the BLS path's modules are
+    among them."""
+    assert set(FUNNEL_MODULES + BLS_MODULES) <= set(_port_modules())
+
+
+def _bls_entry_points():
+    """BLS entry points, each on an input it refuses before any pairing
+    (an all-zero aggregate signature does not decode)."""
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto import batch, verify_hub
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing
+
+    pub = tt.make_validator_set(1, key_types=("bls12381",))[0].validators[0].pub_key
+    return {
+        "bls_aggregate_verify": lambda **kw: batch.bls_aggregate_verify(
+            [pub], [b"m"], bytes(96), **kw
+        ),
+        "verify_aggregate": lambda **kw: verify_hub.verify_aggregate(
+            [pub], [b"m"], bytes(96), **kw
+        ),
+        "verify_items": lambda **kw: bls_pairing.verify_items([], **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["bls_aggregate_verify", "verify_aggregate", "verify_items"])
+def test_bls_entry_points_raise_without_cuda_unless_cpu_requested(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    fn = _bls_entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(device="cuda")
+    assert not fn(device="cpu").any() if name == "verify_items" else not fn(device="cpu")
 
 
 def _funnel_entry_points():

@@ -13,13 +13,19 @@ that are not multiples of B3's two chains per block), no element at
 all, the all-511 worst case of the FP32 convolution (and, for B3, of the
 8p that the reference's arithmetic adds as zero), limbs below zero, and
 operands the wrappers must copy (a transposed view, a misaligned view)
-or read in place (a broadcast constant).
+or read in place (a broadcast constant). The BLS kernels (K7a
+bls_miller, K7b bls_final_exp) run on pairing buckets of real pairs and
+of p - 1 in every input with zero lines and pad pairs; K7b is also held
+against bls_math.final_exp.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tendermint_tpu_torch.crypto import bls_math as BM
+from tendermint_tpu_torch.crypto.cuda import bls_field as BF
+from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
 from tendermint_tpu_torch.crypto.cuda import curve as C
 from tendermint_tpu_torch.crypto.cuda import field as F
 from tendermint_tpu_torch.crypto.cuda import msm as M
@@ -241,3 +247,72 @@ def test_msm_on_card_is_limb_identical_to_cpu(card):
         )
         for a, b in zip(on_cpu, on_card):
             assert torch.equal(a, b.cpu())
+
+
+def _pairing_inputs(m: int, npairs: int, device, worst: bool):
+    """A (m, npairs) pairing bucket: real pairs (item i holds i + 1 pairs,
+    the rest pads), or p - 1 in every input with every second lane's lines
+    zero and every third lane a pad pair."""
+    if not worst:
+        items = [
+            [(BM.g1_mul(BM.G1_GEN, 3 + i + j), BM.hash_to_point_g2(b"k7-%d-%d" % (i, j)))
+             for j in range(min(i + 1, npairs))]
+            for i in range(m)
+        ]
+        return [torch.from_numpy(a).to(device) for a in BP.prepare_pairing_batch(items, m, npairs)[0]]
+    pm1 = torch.from_numpy(BF.int_to_limbs(BM.P - 1))
+    shapes = [(m, npairs, 49)] * 2 + [(63, m, npairs, 2, 49)] * 4
+    out = [pm1.expand(s).clone() for s in shapes]
+    lane = torch.arange(m * npairs).reshape(m, npairs)
+    for t in out[2:]:
+        t[:, lane % 2 == 1] = 0
+    out[0][lane % 3 == 2] = 0
+    out[1][lane % 3 == 2] = torch.from_numpy(BF.ONE)
+    for t in out[2:]:
+        t[:, lane % 3 == 2] = 0
+    return [t.to(device) for t in out]
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2), (2, 4)])
+@pytest.mark.parametrize("worst", [False, True])
+def test_bls_miller_kernel_equals_plain(card, shape, worst):
+    ins = _pairing_inputs(*shape, card, worst)
+    before = BP.MILLER.launches
+    got = BP.miller(*ins)
+    assert BP.MILLER.launches == before + 1
+    assert torch.equal(got, BP._miller_plain(*ins))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
+@pytest.mark.parametrize("worst", [False, True])
+def test_bls_final_exp_kernel_equals_plain(card, shape, worst):
+    lanes = BP.miller(*_pairing_inputs(*shape, card, worst))
+    before = BP.FINAL_EXP.launches
+    ok, out = BP.final_exp(lanes)
+    assert BP.FINAL_EXP.launches == before + 1
+    want_ok, want = BP._final_exp_plain(lanes)
+    assert torch.equal(ok, want_ok) and torch.equal(out, want)
+    c, f = out[0].cpu().numpy(), lanes[0].cpu().numpy()
+    prod = BM.F12_ONE
+    for j in range(shape[1]):
+        prod = BM.f12_mul(prod, tuple(BF.limbs_to_int(f[j, i, k]) for i in range(6) for k in range(2)))
+    assert tuple(BF.limbs_to_int(c[i, k]) for i in range(6) for k in range(2)) == BM.final_exp(prod)
+
+
+def test_bls_kernels_refuse_wrong_operands(card):
+    ins = _pairing_inputs(2, 2, card, worst=True)
+    with pytest.raises(ValueError):
+        BP.miller(ins[0].long(), *ins[1:])
+    with pytest.raises(ValueError):
+        BP.miller(ins[0], ins[1].cpu(), *ins[2:])
+    with pytest.raises(ValueError):
+        BP.final_exp(torch.zeros((2, 2, 6, 2, 49), dtype=torch.int64, device=card))
+
+
+def test_bls_verify_items_on_card_matches_cpu(card):
+    sk = [5, 6, 7]
+    triples = [(BM.sk_to_pk(k), b"m%d" % k, BM.sign(k, b"m%d" % k)) for k in sk]
+    triples[1] = (triples[1][0], b"other", triples[1][2])
+    got = BP.verify_items(triples, device=card)
+    assert got.tolist() == [True, False, True]
+    assert got.tolist() == BP.verify_items(triples, device="cpu").tolist()
