@@ -118,9 +118,12 @@ failure exits non-zero, nothing is caught and carried past):
      signature bit (a fresh hub) it must name commit 0 and signature 7.
      K7a and K7b are held torch.equal to their plain versions on the card
      at every shape these paths gave them, on the paths' inputs and on
-     worst-case ones (p - 1 in every input, zero lines, pad pairs), and
-     K7b against bls_math.final_exp on 2 items of the (128, 2) bucket;
-     each gets a timed `kernels` row at (2, 256);
+     worst-case ones (p - 1 in every input, zero lines, pad pairs; for K7b
+     also an item whose product is zero, which must come out zero and not
+     one), and K7b against bls_math.final_exp on 2 items of the (128, 2)
+     bucket; each gets a timed `kernels` row (CUDA events around many
+     launches) at (2, 256) and at (128, 2), with its serial chain counted
+     beside the reference's;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
@@ -217,42 +220,90 @@ ADD_CACHED_OPS = 8 * FE_MUL_OPS + 3 * FE_SUB_OPS + 3 * FE_ADD_OPS
 LIMB_BYTES = 32 * 4
 
 # The BLS kernels (K7a, K7b), counted in 381-bit products, as the
-# reference's formulas give them: an Fq12 product is 144 Fp products; a
-# Miller step 2 Fq12 products, 3 on the 5 steps with an addition line;
-# the final exponentiation the pair product (npairs - 1), 8 Fq12 products
-# and 6 Frobenius^2 maps (12 Fp products each) in the easy part, 612 Fp
-# products of the Fermat inverse and its norm, then 1,267 squarings and
-# 632 multiplies. One 381-bit product is priced at 12 x 12 32-bit
+# reference's formulas give them, whatever the kernels compute instead:
+# an Fq12 product is 144 Fp products; a Miller step 2 Fq12 products, 3 on
+# the 5 steps with an addition line; the final exponentiation the pair
+# product (one fewer than the lanes), 8 Fq12 products and 6 Frobenius^2
+# maps (12 Fp products each) in the easy part, 612 Fp products of the
+# Fermat inverse and its norm, then the scan of the hard part's bits
+# (bls_pairing.HARD_STEP_BITS: 1,267 squarings and 632 multiplies). The
+# work is what this run's data needs: a pad lane (every line exactly 1)
+# needs no Miller loop and a lane of value one no product, so the bound
+# counts the other lanes (`bound_ms_all_lanes` counts every lane, as
+# PR 7's rows did). One 381-bit product is priced at 12 x 12 32-bit
 # multiply-adds, twice for the reduction, at the rate above (a
 # multiply-add is two operations).
 FP381_OPS = 2 * 2 * 12 * 12
 F12_FP = 144
 BLS_LIMB_BYTES = 49 * 4
+MILLER_F12 = 63 * 2 + 5
 
 
-def _miller_cost(m: int, npairs: int) -> tuple[int, int]:
-    """K7a's (bytes, operations): px, py and four (63, lanes, 2, 49)
-    line arrays in, (lanes, 6, 2, 49) out."""
+def _miller_cost(m: int, npairs: int, real: int) -> tuple[int, int]:
+    """K7a's (bytes, operations) with `real` lanes that are not pads: px,
+    py and four (63, lanes, 2, 49) line arrays in (every lane is read),
+    (lanes, 6, 2, 49) out."""
     lanes = m * npairs
     n_bytes = BLS_LIMB_BYTES * lanes * (2 + 4 * 63 * 2 + 12)
-    return n_bytes, lanes * (63 * 2 + 5) * F12_FP * FP381_OPS
+    return n_bytes, real * MILLER_F12 * F12_FP * FP381_OPS
 
 
-def _final_exp_chain(npairs: int) -> tuple[int, int]:
-    """One item's serial chain in K7b: (Fq12 products, Fp products)."""
+def _final_exp_chain(lanes: int) -> tuple[int, int]:
+    """The reference's chain for an item of `lanes` lanes: (Fq12
+    products, Fp products)."""
     from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
 
-    f12 = npairs - 1 + 8 + len(BP.HARD_STEP_BITS) + int(BP.HARD_STEP_BITS.sum())
+    f12 = max(lanes - 1, 0) + 8 + len(BP.HARD_STEP_BITS) + int(BP.HARD_STEP_BITS.sum())
     return f12, f12 * F12_FP + 6 * 12 + 612
 
 
-def _final_exp_cost(m: int, npairs: int) -> tuple[int, int]:
-    """K7b's (bytes, operations): (m, npairs, 6, 2, 49) in, the bits,
-    (m, 6, 2, 49) and m flags out."""
-    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+def _final_exp_cost(m: int, npairs: int, real: list) -> tuple[int, int]:
+    """K7b's (bytes, operations), item i with real[i] lanes that are not
+    one: (m, npairs, 6, 2, 49) in, (m, 6, 2, 49) and m flags out."""
+    n_bytes = BLS_LIMB_BYTES * 12 * (m * npairs + m) + m
+    return n_bytes, sum(_final_exp_chain(n)[1] for n in real) * FP381_OPS
 
-    n_bytes = BLS_LIMB_BYTES * 12 * (m * npairs + m) + m + 4 * len(BP.HARD_STEP_BITS)
-    return n_bytes, m * _final_exp_chain(npairs)[1] * FP381_OPS
+
+# K7b's own serial chain, counted from csrc/bls_final_exp.cu: the pair
+# product in chunks of 24 lanes, the lanes that are not one dealt to four
+# groups (one round of Fq12 products per four), two rounds joining the
+# groups; the easy part's 8 Fq12 products and 6 Frobenius^2 maps, and in
+# one thread the inverse's 8 products and Kaliski's almost inverse; the
+# x-chain's 314 cyclotomic squarings, 52 Fq12 products, a p- and a
+# p^2-Frobenius. Each operation is one stage of Fp products, one product
+# deep (f12_mul 108 products, the cyclotomic squaring 27, f12_frob 18,
+# f12_frob2 12).
+FINAL_CHUNK, FINAL_GROUPS = 24, 4
+CYCLO_FP, FROB_FP, FROB2_FP, KARATSUBA_F12_FP = 27, 18, 12, 108
+# K7a's per real lane: 62 general squarings (63 products), 67 sparse line
+# products (48), against the reference's 131 Fq12 products of 144
+MILLER_CHAIN = {"f12_sqr": 62, "line_products": 67, "fp_products": 62 * 63 + 67 * 48,
+                "reference_fp_products": MILLER_F12 * F12_FP}
+
+
+def _final_exp_kernel_chain(not_one) -> dict:
+    """The serial chain of K7b's longest item, from `not_one` (m, npairs)
+    bool: which lanes are not exactly one."""
+    rounds = 0
+    for row in not_one.cpu().tolist():
+        r = 0
+        for base in range(0, len(row), FINAL_CHUNK):
+            n = sum(row[base:base + FINAL_CHUNK])
+            r += -(-n // FINAL_GROUPS)
+        rounds = max(rounds, r)
+    f12 = rounds + 2 + 8 + 52
+    frob2 = 6 + 1
+    return {
+        "pair_product_rounds": rounds,
+        "f12_products": f12,
+        "cyclotomic_squarings": 314,
+        "frobenius": 1,
+        "frobenius2": frob2,
+        "inverse": "Kaliski's almost inverse in one thread, with 8 products around it",
+        "serial_operations": f12 + 314 + 1 + frob2,
+        "fp_products": f12 * KARATSUBA_F12_FP + 314 * CYCLO_FP + FROB_FP + frob2 * FROB2_FP + 8,
+        "reference_f12_products": _final_exp_chain(len(not_one[0]))[0],
+    }
 
 
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1954,9 +2005,11 @@ def _miller_worst(ins, dev) -> list:
     return out
 
 
-def _final_worst(f, dev):
+def _final_worst(f, dev, zero: bool = False):
     """K7b input of the same shape: p - 1 everywhere, every third lane
-    (flattened index mod 3 == 2) one, as a pad pair leaves it."""
+    (flattened index mod 3 == 2) one, as a pad pair leaves it; with
+    `zero`, the last item's first lane zero too, so that its product is
+    zero (and its final exponentiation zero, not one)."""
     import torch
 
     from tendermint_tpu_torch.crypto.cuda import bls_field as BF
@@ -1964,6 +2017,8 @@ def _final_worst(f, dev):
     out = torch.empty_like(f).copy_(_pm1_limbs(dev).expand_as(f))
     sel = torch.arange(f.shape[0] * f.shape[1], device=dev).reshape(f.shape[:2])
     out[sel % 3 == 2] = BF.f12_one((), dev)
+    if zero:
+        out[-1, 0] = 0
     return out
 
 
@@ -1980,20 +2035,20 @@ def _hold_bls(kernel, what, run, plain) -> int:
     return max(int((g.long() - w.long()).abs().max().item()) for g, w in zip(got, want))
 
 
-def _bls_row(kernel, shape, run, plain, cost, reps) -> dict:
-    """A `kernels` row for K7a or K7b at `shape` (m, npairs), timed as the
-    other rows are: the kernel alone (torch.profiler, median of three
-    repeats of `reps` calls), through its wrapper (CUDA events), and its
-    plain version once (CUDA events; it is ~2,000 Fq12 products of
-    PyTorch glue for K7b)."""
+def _bls_row(kernel, shape, run, plain, cost, cost_all, reps) -> dict:
+    """A `kernels` row for K7a or K7b at `shape` (m, npairs): the kernel
+    timed by CUDA events around `reps` launches through its wrapper,
+    median of three repeats (torch.profiler recorded no device events in
+    most repeats of these rows in PR 7; at these kernels' lengths the
+    wrapper's host time hides behind the launches), and its plain version
+    once (CUDA events). `cost` is the (bytes, operations) of this run's
+    data, `cost_all` of every lane."""
     import torch
 
-    n_bytes, n_ops = cost(*shape)
+    n_bytes, n_ops = cost
     bound_ms, bound_by = _bound(n_bytes, n_ops)
-    repeats = [_device_ms(run, reps, name=f"{kernel.name}_kernel") for _ in range(3)]
-    wrappers = [_time_ms(run, reps) for _ in range(3)]
-    measured = sorted(r for r in repeats if r is not None)
-    ms = measured[len(measured) // 2] if measured else sorted(wrappers)[1]
+    repeats = [_time_ms(run, reps) for _ in range(3)]
+    ms = sorted(repeats)[1]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     plain()
@@ -2009,26 +2064,29 @@ def _bls_row(kernel, shape, run, plain, cost, reps) -> dict:
         "max_abs_err": 0,
         "match": True,
         "ms": ms,
-        "ms_source": "profiler" if measured else "cuda_events",
+        "ms_source": "cuda_events",
         "ms_repeats": repeats,
+        "launches_timed": reps,
         "share_of_bound": bound_ms / ms,
-        "wrapper_ms": sorted(wrappers)[1],
-        "wrapper_ms_repeats": wrappers,
+        "wrapper_ms": ms,
         "plain_ms": start.elapsed_time(end),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "bound_ops": n_ops,
         "bound_bytes": n_bytes,
+        "bound_ms_all_lanes": _bound(*cost_all)[0],
         "library_ms": None,  # no PyTorch call computes a Miller loop or a final exponentiation
     }
 
 
-def check_bls_kernels(dev, audit: PairingAudit, main_shape) -> tuple[list, dict]:
+def check_bls_kernels(dev, audit: PairingAudit, main_shape, per_sig_shape) -> tuple[list, dict]:
     """Phase 14's kernel checks: K7a and K7b torch.equal to their plain
     versions on the card at every (items, pairs) shape the BLS paths gave
     them, on the inputs the path gave and on worst-case inputs of the
-    shape; K7b's results against bls_math.final_exp on 2 items of the
-    per-signature bucket. Then a timed row per kernel at `main_shape`."""
+    shape (for K7b also with a zero product, which must stay zero); K7b's
+    results against bls_math.final_exp on 2 items of the per-signature
+    bucket. Then a timed row per kernel at `main_shape` and at
+    `per_sig_shape`."""
     from tendermint_tpu_torch.crypto import bls_math
     from tendermint_tpu_torch.crypto.cuda import bls_field as BF
     from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
@@ -2041,9 +2099,14 @@ def check_bls_kernels(dev, audit: PairingAudit, main_shape) -> tuple[list, dict]
                           lambda ins=ins: BP.miller(*ins), lambda ins=ins: BP._miller_plain(*ins))
         else:
             (f,) = rec["inputs"]
-            for source, x in (("path", f), ("worst case", _final_worst(f, dev))):
+            zero = _final_worst(f, dev, zero=True)
+            for source, x in (("path", f), ("worst case", _final_worst(f, dev)),
+                              ("zero product", zero)):
                 _hold_bls(BP.FINAL_EXP, f"{shape}, {source} inputs",
                           lambda x=x: BP.final_exp(x), lambda x=x: BP._final_exp_plain(x))
+            ok, out = BP.final_exp(zero)
+            if bool(ok[-1]) or bool(out[-1].any()):
+                raise AssertionError(f"bls_final_exp {shape}: a zero product did not stay zero")
         held.append({"kernel": name, "shape": list(shape), "calls": rec["calls"]})
 
     def ints(t):
@@ -2064,19 +2127,33 @@ def check_bls_kernels(dev, audit: PairingAudit, main_shape) -> tuple[list, dict]
             raise AssertionError(f"bls_final_exp item {item} differs from bls_math.final_exp")
     vs_math = {"items": 2, "shape": list(f.shape[:2]), "equal": True}
 
+    # a timed row per kernel at the aggregate path's bucket and at the
+    # per-signature path's, on the inputs each path gave
     rows = []
-    for kernel, cost, reps in ((BP.MILLER, _miller_cost, 20), (BP.FINAL_EXP, _final_exp_cost, 10)):
-        (ins,) = [rec["inputs"] for (name, shape), rec in audit.seen.items()
-                  if name == kernel.name and shape == main_shape][:1]
-        if kernel is BP.MILLER:
-            run, plain = (lambda ins=ins: BP.miller(*ins)), (lambda ins=ins: BP._miller_plain(*ins))
-        else:
-            run, plain = (lambda x=ins[0]: BP.final_exp(x)), (lambda x=ins[0]: BP._final_exp_plain(x))
-        row = _bls_row(kernel, main_shape, run, plain, cost, reps)
-        if kernel is BP.FINAL_EXP:
-            f12, fp = _final_exp_chain(main_shape[1])
-            row["serial_chain"] = {"f12_products": f12, "fp_products": fp}
-        rows.append(row)
+    for shape, path in ((main_shape, BLS_MAIN), (per_sig_shape, BLS_PERSIG)):
+        for kernel in (BP.MILLER, BP.FINAL_EXP):
+            ins = audit.seen[(kernel.name, shape)]["inputs"]
+            m, npairs = shape
+            if kernel is BP.MILLER:
+                run, plain = (lambda i=ins: BP.miller(*i)), (lambda i=ins: BP._miller_plain(*i))
+                real = int((~BP.pad_lanes(*ins[1:])).sum())
+                row = _bls_row(kernel, shape, run, plain, _miller_cost(m, npairs, real),
+                               _miller_cost(m, npairs, m * npairs), 50)
+                row["real_lanes"] = real
+                row["chain_per_lane"] = MILLER_CHAIN
+            else:
+                (f,) = ins
+                run, plain = (lambda x=f: BP.final_exp(x)), (lambda x=f: BP._final_exp_plain(x))
+                not_one = ~(f == BF.f12_one((), dev)).flatten(2).all(-1)
+                real = not_one.sum(1).tolist()
+                row = _bls_row(kernel, shape, run, plain, _final_exp_cost(m, npairs, real),
+                               _final_exp_cost(m, npairs, [npairs] * m), 20)
+                row["lanes_not_one"] = real
+                row["chain"] = _final_exp_kernel_chain(not_one)
+                f12, fp = _final_exp_chain(npairs)
+                row["reference_chain"] = {"f12_products": f12, "fp_products": fp}
+            row["path"] = path
+            rows.append(row)
     return rows, {"held": held, "final_exp_vs_bls_math": vs_math}
 
 
@@ -2233,7 +2310,7 @@ def drive_bls(dev) -> dict:
     if any(tampered_ps["launches"][k] != 1 for k in kernels):
         raise AssertionError(f"tampered per-signature commit: {tampered_ps}")
 
-    rows, checks = check_bls_kernels(dev, audit, want_shape)
+    rows, checks = check_bls_kernels(dev, audit, want_shape, ps_shape)
     n_signers = len(signers)
     return {
         "entry": "types.validation.verify_commit / verify_commit_range on aggregate commits "

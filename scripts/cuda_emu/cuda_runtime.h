@@ -4,6 +4,7 @@
 // __syncthreads, and shared memory is function-static, blocks running one
 // after another.
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstring>
@@ -34,6 +35,19 @@ inline thread_local std::barrier<>* emu_warp_bar;
 inline thread_local std::barrier<>* emu_block_bar;
 inline void __syncwarp() { emu_warp_bar->arrive_and_wait(); }
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+inline thread_local std::atomic<int>* emu_block_or;
+// three barrier phases, so that the flag is cleared before any thread can
+// reach the next call's first store
+inline int __syncthreads_or(int pred) {
+  __syncthreads();
+  if (pred) emu_block_or->store(1);
+  __syncthreads();
+  const int any = emu_block_or->load();
+  __syncthreads();
+  if (threadIdx.x == 0) emu_block_or->store(0);
+  return any;
+}
+inline int __ffs(int x) { return __builtin_ffs(x); }
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) int4 { int x, y, z, w; };
 struct alignas(8) int2 { int x, y; };
@@ -46,6 +60,7 @@ inline int __float_as_int(float f) { int v; std::memcpy(&v, &f, 4); return v; }
 inline void emu_launch(unsigned blocks, unsigned threads, int, void*, std::function<void()> body) {
   for (unsigned b = 0; b < blocks; ++b) {
     std::barrier<> block_bar(threads);
+    std::atomic<int> block_or{0};
     std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
     for (unsigned w = 0; w < (threads + 31) / 32; ++w)
       warp_bars.emplace_back(new std::barrier<>(std::min(32u, threads - 32 * w)));
@@ -56,6 +71,7 @@ inline void emu_launch(unsigned blocks, unsigned threads, int, void*, std::funct
         blockIdx.x = b;
         emu_warp_bar = warp_bars[t / 32].get();
         emu_block_bar = &block_bar;
+        emu_block_or = &block_or;
         body();
       });
     }

@@ -14,10 +14,10 @@ tensors and is held, limb for limb, against its plain PyTorch version:
 B3 on chain counts around its eight chains per block, with an all-511
 chain, a y == x chain and signed limbs; B1 (two operands, a squaring, a
 broadcast constant) and B2 on limbs in [0, 512) and [-511, 512), row 0
-at 511; K7a (bls_miller) and K7b (bls_final_exp) on a 2 x 2 pairing
-batch of real pairs, and on p - 1 in every input, zero lines and pad
-pairs (K7b alone takes about a minute: 144 threads a block, some 9,000
-barriers an item).
+at 511; K7a (bls_miller) and K7b (bls_final_exp) on pairing batches of
+real pairs at (2, 2) and (2, 4), the latter with pad pairs, and on p - 1
+in every input with zero lines and pad pairs; K7b alone also on lanes of
+p - 1, of one, and an item whose product is zero.
 
 --eager runs each cp.async copy when it is issued instead of when its
 group is waited for. --tsan builds with ThreadSanitizer, which reports
@@ -128,8 +128,10 @@ def check(suffix: str) -> bool:
 
 
 def check_bls(libs) -> bool:
-    """K7a and K7b on a (2 items, 2 pairs) batch: real pairs, and p - 1
-    in every input with zero lines and pad pairs among the lanes."""
+    """K7a and K7b against their plain versions: real pairs at (2, 2) and
+    (2, 4) (pad pairs beside them); p - 1 in every input with zero lines
+    and pad pairs among the lanes; and K7b alone on lanes of p - 1, of
+    one, and an item whose product is zero."""
     import torch
 
     from tendermint_tpu_torch.crypto import bls_math as B
@@ -138,15 +140,28 @@ def check_bls(libs) -> bool:
 
     P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     miller = libs["bls_miller"].bls_miller_launch
-    miller.argtypes = [P] * 8 + [I64, I32, P]
+    miller.argtypes = [P] * 7 + [I64, I32, P]
     final = libs["bls_final_exp"].bls_final_exp_launch
-    final.argtypes = [P] * 4 + [I64, I64, I32, I32, P]
-    xbits = torch.from_numpy(BP.X_STEP_BITS)
-    hbits = torch.from_numpy(BP.HARD_STEP_BITS)
+    final.argtypes = [P] * 3 + [I64, I64, I32, P]
+
+    def run_miller(ins):
+        m, npairs = ins[0].shape[:2]
+        lanes = torch.empty((m, npairs, 6, 2, 49), dtype=torch.int32)
+        miller(*(t.data_ptr() for t in ins), lanes.data_ptr(), m * npairs, 0, None)
+        return lanes
+
+    def run_final(f):
+        m, npairs = f.shape[:2]
+        okb = torch.empty(m, dtype=torch.bool)
+        out = torch.empty((m, 6, 2, 49), dtype=torch.int32)
+        final(f.data_ptr(), okb.data_ptr(), out.data_ptr(), m, npairs, 0, None)
+        return okb, out
+
     q = B.hash_to_point_g2(b"emu")
     items = [[(B.g1_mul(B.G1_GEN, 5), q)], [(B.NEG_G1_GEN, B.g2_mul(q, 3)), (B.g1_mul(B.G1_GEN, 3), q)]]
-    real = [torch.from_numpy(a) for a in BP.prepare_pairing_batch(items, 2, 2)[0]]
     pm1 = torch.from_numpy(BF.int_to_limbs(B.P - 1))
+    real = [torch.from_numpy(a) for a in BP.prepare_pairing_batch(items, 2, 2)[0]]
+    wide = [torch.from_numpy(a) for a in BP.prepare_pairing_batch(items, 2, 4)[0]]
     worst = [t.clone() for t in real]
     for t in worst:
         t[...] = pm1
@@ -155,19 +170,29 @@ def check_bls(libs) -> bool:
     worst[0][1, 1] = 0
     worst[1][1, 1] = torch.from_numpy(BF.ONE)
     ok = True
-    for name, ins in (("real pairs", real), ("p - 1, zero lines, a pad pair", worst)):
-        lanes = torch.empty((2, 2, 6, 2, 49), dtype=torch.int32)
-        miller(*(t.data_ptr() for t in ins), xbits.data_ptr(), lanes.data_ptr(), 4, 0, None)
+    for name, ins in (("real pairs (2, 2)", real), ("real pairs and pad pairs (2, 4)", wide),
+                      ("p - 1, zero lines, a pad pair", worst)):
+        lanes = run_miller(ins)
         want = BP._miller_plain(*ins)
         equal = torch.equal(lanes, want)
-        okb = torch.empty(2, dtype=torch.bool)
-        out = torch.empty((2, 6, 2, 49), dtype=torch.int32)
-        final(want.data_ptr(), hbits.data_ptr(), okb.data_ptr(), out.data_ptr(), 2, 2,
-              len(hbits), 0, None)
+        okb, out = run_final(want)
         want_ok, want_out = BP._final_exp_plain(want)
         equal_b = torch.equal(out, want_out) and torch.equal(okb, want_ok)
         ok &= equal and equal_b
         print(f"bls_miller, bls_final_exp on {name}: {equal}, {equal_b} (ok {okb.tolist()})")
+    # K7b alone: item 0 every lane p - 1, item 1 a zero lane beside one and
+    # p - 1 (its product is zero), items 2 and 3 every lane one
+    f = pm1.expand(4, 3, 6, 2, 49).clone()
+    f[1, 0] = 0
+    f[1, 1] = BF.f12_one()
+    f[2:] = BF.f12_one()
+    okb, out = run_final(f)
+    want_ok, want_out = BP._final_exp_plain(f)
+    equal_b = torch.equal(out, want_out) and torch.equal(okb, want_ok)
+    zero = bool((out[1] == 0).all()) and not bool(okb[1])
+    ok &= equal_b and zero
+    print(f"bls_final_exp on p - 1, a zero product, all-one items: {equal_b}, zero kept {zero} "
+          f"(ok {okb.tolist()})")
     return ok
 
 

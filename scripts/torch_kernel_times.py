@@ -7,12 +7,18 @@ Imports tendermint_tpu_torch from CHECKOUT (default: the checkout this
 script lies in), builds its kernels there, and prints one JSON line: the
 card's name and power limit, and for each kernel at its main-path shapes
 (B1 `fe_mul` at 8,192 elements, B2 `fe_pow22523` at 8,447, B3
-`scan_blocks` at 8,192 and 512 chains of 15 steps) the kernel's device
-time per call (torch.profiler, three repeats of 20 calls each) and
-whether its output equals its plain version's. The inputs come from a
-fixed seed with limbs in [0, 512), the same for every checkout, so the
-lines of two checkouts run in one call compare like with like. Exits
-non-zero without a card.
+`scan_blocks` at 8,192 and 512 chains of 15 steps, K7a `bls_miller` and
+K7b `bls_final_exp` at the aggregate path's (2, 256) bucket and the
+per-signature path's (128, 2)) the kernel's device time per call and
+whether its output equals its plain version's. B1-B3 are timed by
+torch.profiler, K7a and K7b by CUDA events around 20 and 10 launches
+(the profiler recorded no device events for most of their repeats),
+three repeats each. The inputs come from a fixed seed with limbs in [0,
+512), and the pairing buckets from 8 fixed pairs, laid out as the paths
+lay them out (at (2, 256) item 0 holds 151 real pairs and item 1 none;
+at (128, 2) 101 items hold 2 real pairs and 27 none): the same for every
+checkout, so the lines of two checkouts run in one call compare like
+with like. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -76,6 +82,55 @@ def main() -> int:
             lambda f=first, r=rest: msm._scan_blocks_plain(f, r),
         ))
 
+    from tendermint_tpu_torch.crypto import bls_math
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+
+    pairs = [(bls_math.g1_mul(bls_math.G1_GEN, 3 + i), bls_math.hash_to_point_g2(b"times-%d" % i))
+             for i in range(8)]
+    # lane (i, 0) of `base` is pair i, lane (i, 1) a pad pair
+    base = BP.prepare_pairing_batch([[pq] for pq in pairs], 8, 2)[0]
+
+    def bucket(real):
+        """(m, npairs) arrays: item i holds real[i] real pairs, then pads."""
+        m, npairs = len(real), 2 if max(real) <= 2 else 256
+        src_item = torch.tensor([[j % 8 if j < n else 0 for j in range(npairs)] for n in real])
+        src_pair = torch.tensor([[0 if j < n else 1 for j in range(npairs)] for n in real])
+        out = []
+        for a in base:
+            t = torch.from_numpy(a)
+            t = t[src_item, src_pair] if t.dim() == 3 else t[:, src_item, src_pair]
+            out.append(t.contiguous().to(dev))
+        return out
+
+    def events_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    bls_rows = []
+    for shape, real in (((2, 256), [151, 0]), ((128, 2), [2] * 101 + [0] * 27)):
+        ins = bucket(real)
+        lanes = BP.miller(*ins)
+        for name, reps, run, plain in (
+            ("bls_miller", 2 * REPS, lambda i=ins: BP.miller(*i), lambda i=ins: BP._miller_plain(*i)),
+            ("bls_final_exp", REPS, lambda x=lanes: BP.final_exp(x),
+             lambda x=lanes: BP._final_exp_plain(x)),
+        ):
+            got, want = run(), plain()
+            got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+            bls_rows.append({
+                "name": name,
+                "shape": list(shape),
+                "ms_repeats": [events_ms(run, reps) for _ in range(3)],
+                "equal_to_plain": all(torch.equal(g, w) for g, w in zip(got, want)),
+            })
+
     rows = []
     for name, m, run, plain in cases:
         got, want = run(), plain()
@@ -87,7 +142,7 @@ def main() -> int:
             "ms_repeats": [device_ms(run, f"{name}_kernel") for _ in range(3)],
             "equal_to_plain": torch.equal(got, want),
         })
-    print(json.dumps({"checkout": root, "card": smi, "kernels": rows}))
+    print(json.dumps({"checkout": root, "card": smi, "kernels": rows + bls_rows}))
     return 0
 
 

@@ -18,6 +18,14 @@ The Fq2 / Fq12 tower mirrors crypto/bls_math.py: Fq2 = Fq[u]/(u^2+1) as
 (..., 6, 2, 49). This module is the plain version the pairing kernels
 (crypto/cuda/bls_pairing.py, csrc/bls_*.cu) are held against; its
 tensors may lie on the CPU or on the card.
+
+Beside the reference's ops it carries the ones the kernels compute with
+and the reference does not have: a general Fq12 squaring (`f12_sqr`),
+the Granger-Scott squaring of the cyclotomic subgroup
+(`f12_cyclotomic_sqr`), the p-power Frobenius (`f12_frob`) and the
+product by a sparse Miller line (`f12_mul_line`). They are exact in
+value (every result is weak-normal and equal mod p to the schoolbook
+one), not limb for limb to anything in the reference.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..bls_math import P as P_INT, ZETA as ZETA_INT
+from ..bls_math import P as P_INT, XI as XI_INT, ZETA as ZETA_INT, q2_pow
 
 LIMBS = 49
 WIDE = 2 * LIMBS - 1  # 97-limb convolution output
@@ -68,6 +76,11 @@ _PM2_BITS = [int(b) for b in bin(P_INT - 2)[3:]]
 # Frobenius^2 coefficients zeta^i as limb rows (6, 49)
 _FROB2 = np.stack([int_to_limbs(pow(ZETA_INT, i, P_INT)) for i in range(6)])
 
+# Frobenius coefficients gamma_i = xi^(i (p - 1) / 6) in Fq2, limb rows
+# (6, 2, 49): f^p conjugates coefficient i and multiplies it by gamma_i
+GAMMA = tuple(q2_pow(XI_INT, i * (P_INT - 1) // 6) for i in range(6))
+_FROB1 = np.stack([np.stack([int_to_limbs(g[0]), int_to_limbs(g[1])]) for g in GAMMA])
+
 # canonical()'s comparison constants: bytes of 2^392 - k*p
 _CMP = {
     k: np.frombuffer((2**392 - k * P_INT).to_bytes(LIMBS, "little"), dtype=np.uint8).astype(
@@ -81,6 +94,7 @@ _HOST = {
     "M48_48": M48[:48],
     "OFFSET": OFFSET,
     "FROB2": _FROB2,
+    "FROB1": _FROB1,
     "F_HI": _F_HI.astype(np.float64),
     **{f"CMP{k}": v for k, v in _CMP.items()},
 }
@@ -238,6 +252,16 @@ def fq2_neg(a):
     return weak_reduce(_c("OFFSET", a.device) - a, 3)
 
 
+def fq2_conj(a: torch.Tensor) -> torch.Tensor:
+    return torch.stack([a[..., 0, :], neg(a[..., 1, :])], -2)
+
+
+def fq2_sqr(a: torch.Tensor) -> torch.Tensor:
+    """(a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + (2 a0) a1 u: two Fq products."""
+    a0, a1 = a[..., 0, :], a[..., 1, :]
+    return mul(torch.stack([add(a0, a1), add(a0, a0)], -2), torch.stack([sub(a0, a1), a1], -2))
+
+
 def fq2_inv(a: torch.Tensor) -> torch.Tensor:
     """(a0 - a1 u) / (a0^2 + a1^2): one Fp inversion."""
     a0, a1 = a[..., 0, :], a[..., 1, :]
@@ -265,6 +289,14 @@ def _mul_by_xi(c: torch.Tensor) -> torch.Tensor:
     return _sub_and_sum(r + _c("OFFSET", c.device) - i, r + i)
 
 
+def _fold(conv: torch.Tensor) -> torch.Tensor:
+    """An 11-coefficient product over Fq2 (raw limb sums below 2^13) ->
+    the Fq12 with w^6 = xi, reduced as f12_mul reduces."""
+    lo = conv[..., :6, :, :]
+    lo[..., :5, :, :] += _mul_by_xi(weak_reduce(conv[..., 6:, :, :], 3))
+    return weak_reduce(lo, 3)
+
+
 def f12_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Degree-6 polynomial product over Fq2 with the w^6 = xi fold; the
     36 Fq2 cross-products go through one stacked fq2_mul, and the
@@ -276,9 +308,66 @@ def f12_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     conv = prod.new_zeros(prod.shape[:-4] + (11, 2, LIMBS))
     for i in range(6):
         conv[..., i : i + 6, :, :] += prod[..., i, :, :, :]  # raw sums <= 6 * 526
-    lo = conv[..., :6, :, :]
-    lo[..., :5, :, :] += _mul_by_xi(weak_reduce(conv[..., 6:, :, :], 3))
-    return weak_reduce(lo, 3)
+    return _fold(conv)
+
+
+_PAIRS = [(i, j) for i in range(6) for j in range(i + 1, 6)]
+
+
+def f12_sqr(a: torch.Tensor) -> torch.Tensor:
+    """General Fq12 squaring, 21 Fq2 products (the 15 cross products a_i
+    a_j, i < j, each counted twice, and the 6 squares) in place of
+    f12_mul's 36; f need not be in the cyclotomic subgroup."""
+    i, j = zip(*_PAIRS)
+    cross = fq2_mul(a[..., list(i), :, :], a[..., list(j), :, :])  # (..., 15, 2, 49)
+    sq = fq2_sqr(a)
+    conv = a.new_zeros(a.shape[:-3] + (11, 2, LIMBS))
+    for n, (x, y) in enumerate(_PAIRS):
+        conv[..., x + y, :, :] += 2 * cross[..., n, :, :]
+    conv[..., 0:11:2, :, :] += sq  # raw sums <= 7 * 526
+    return _fold(conv)
+
+
+def _three_minus_two(v: torch.Tensor, old: torch.Tensor, sign: int) -> torch.Tensor:
+    """3 v + 2 sign old, sign = +-1."""
+    two_old = add(old, old)
+    return add(add(v, v), add(v, two_old) if sign > 0 else sub(v, two_old))
+
+
+def f12_cyclotomic_sqr(a: torch.Tensor) -> torch.Tensor:
+    """a^2 for a in the cyclotomic subgroup (a^(p^4 - p^2 + 1) = 1), or
+    zero, by Granger and Scott: Fq12 as Fq4[w]/(w^3 - s), s = w^3, so a =
+    z0 + z1 w + z2 w^2 with z0 = (a0, a3), z1 = (a1, a4), z2 = (a2, a5)
+    (flat coefficients). Each Fq4 square (x + y s)^2 = (x^2 + xi y^2) +
+    ((x + y)^2 - x^2 - y^2) s is three Fq2 squarings: nine in all, 18 Fq
+    products. On any other element the result is not a^2."""
+    x, y = a[..., 0:3, :, :], a[..., 3:6, :, :]  # the three pairs (a_q, a_q+3)
+    sq = fq2_sqr(torch.stack([x, y, add(x, y)], -4))  # (..., 3 which, 3 pairs, 2, 49)
+    t0, t1, s = sq[..., 0, :, :, :], sq[..., 1, :, :, :], sq[..., 2, :, :, :]
+    c0 = add(_mul_by_xi(t1), t0)
+    c1 = sub(sub(s, t0), t1)
+    c1 = torch.cat([c1[..., :2, :, :], _mul_by_xi(c1[..., 2:, :, :])], -3)
+    first = _three_minus_two(c0, a[..., [0, 2, 4], :, :], -1)  # new a0, a2, a4
+    second = _three_minus_two(c1, a[..., [3, 5, 1], :, :], 1)  # new a3, a5, a1
+    return torch.stack([first[..., 0, :, :], second[..., 2, :, :], first[..., 1, :, :],
+                        second[..., 0, :, :], first[..., 2, :, :], second[..., 1, :, :]], -3)
+
+
+def f12_frob(a: torch.Tensor) -> torch.Tensor:
+    """f^p: coefficient i conjugated in Fq2, then times gamma_i."""
+    return fq2_mul(fq2_conj(a), _c("FROB1", a.device))
+
+
+def f12_mul_line(f: torch.Tensor, py: torch.Tensor, c3: torch.Tensor, l5: torch.Tensor):
+    """f times the sparse Miller line py w^0 + c3 w^3 + l5 w^5 (py in Fq
+    (..., 49); c3, l5 in Fq2 (..., 2, 49); l5 = a5 px): 12 Fq products by
+    py and 12 Fq2 products, 48 Fq products in all."""
+    a = mul(f, py[..., None, None, :])
+    bc = fq2_mul(f[..., None, :, :, :], torch.stack([c3, l5], -3)[..., :, None, :, :])
+    b, c = bc[..., 0, :, :, :], bc[..., 1, :, :, :]
+    b = torch.cat([_mul_by_xi(b[..., 3:, :, :]), b[..., :3, :, :]], -3)  # w^(i+3)
+    c = torch.cat([_mul_by_xi(c[..., 1:, :, :]), c[..., :1, :, :]], -3)  # w^(i+5)
+    return weak_reduce(a + b + c, 3)
 
 
 def f12_conj(a: torch.Tensor) -> torch.Tensor:

@@ -18,11 +18,27 @@ The device step is two hand-written kernels (csrc/):
                    (ok (m,), f12 (m, 6, 2, 49) canonical limbs)
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version (`_miller_plain`, `_final_exp_plain`, on bls_field.py's tower,
-which is limb-exact to the JAX one) for CPU tensors. The boundary
-tensors keep the reference's layout: canonical radix-2^8 limbs, int32.
-Unlike the reference there is no opt-in switch and no host fallback: the
-verifier's device decides (crypto/batch.py).
+version (`_miller_plain`, `_final_exp_plain`, on bls_field.py's tower)
+for CPU tensors. The boundary tensors keep the reference's layout:
+canonical radix-2^8 limbs, int32. Unlike the reference there is no
+opt-in switch and no host fallback: the verifier's device decides
+(crypto/batch.py).
+
+Both kernels and their plain versions compute the reference's values
+by cheaper exact means, so their canonical outputs equal the JAX
+graph's limb for limb:
+- the Miller loop squares f with a dedicated squaring and multiplies
+  by each line as the sparse element it is (bls_field.f12_mul_line); a
+  pad lane (py = 1, every line zero: every line is exactly 1) is
+  written as one without running the loop;
+- the pair product skips lanes whose value is exactly one;
+- the hard part of the final exponentiation, f2^d with d = (p^4 - p^2
+  + 1) / r, runs on the x-chain d = ((x - 1)^2 / 3)(x + p)(x^2 + p^2 -
+  1) + 1 (an identity of integers): exponentiations by k = -(x - 1) / 3
+  and by |x|, with Granger-Scott squarings, two Frobenius maps,
+  conjugations for the inverses and 52 multiplies (`hard_part`). It is
+  valid on the cyclotomic subgroup, where the easy part's output lies
+  unless it is zero, and zero stays zero.
 """
 
 from __future__ import annotations
@@ -43,8 +59,12 @@ from ._build import I32, I64, P
 # 5 of them carry an addition line
 X_STEP_BITS = np.array([int(b) for b in bls_math.X_BITS[1:]], dtype=np.int32)
 N_STEPS = len(X_STEP_BITS)
-# final-exponentiation hard part, leading bit dropped (acc seeds at f)
+# the reference's final-exponentiation hard part, leading bit dropped: the
+# work the kernel's bound counts (the kernel runs the x-chain instead)
 HARD_STEP_BITS = np.array([int(b) for b in bls_math.HARD_BITS[1:]], dtype=np.int32)
+# the x-chain's exponents: |x|, and k = -(x - 1) / 3
+X_ABS = -bls_math.X_PARAM
+CHAIN_K = (1 - bls_math.X_PARAM) // 3
 
 _MIN_ITEMS = 2
 _MAX_ITEMS = 256
@@ -52,25 +72,13 @@ _MIN_PAIRS = 2
 
 _PLACE = "tendermint_tpu/crypto/tpu/bls_pairing.py"
 MILLER = _build.Kernel(
-    "bls_miller", "bls_miller", [P] * 8 + [I64, I32, P],
+    "bls_miller", "bls_miller", [P] * 7 + [I64, I32, P],
     replaces=f"{_PLACE}:139 (_build_kernel's Miller scan, :139-147)",
 )
 FINAL_EXP = _build.Kernel(
-    "bls_final_exp", "bls_final_exp", [P] * 4 + [I64, I64, I32, I32, P],
+    "bls_final_exp", "bls_final_exp", [P] * 3 + [I64, I64, I32, P],
     replaces=f"{_PLACE}:148 (_build_kernel's product tree and final exponentiation, :148-164)",
 )
-
-_bits: dict[tuple[str, torch.device], torch.Tensor] = {}
-
-
-def _bits_on(name: str, device: torch.device) -> torch.Tensor:
-    key = (name, device)
-    t = _bits.get(key)
-    if t is None:
-        src = X_STEP_BITS if name == "x" else HARD_STEP_BITS
-        t = _bits[key] = torch.from_numpy(src).to(device)
-    return t
-
 
 def bucket_items(n: int) -> int:
     """Power-of-two item bucket in [_MIN_ITEMS, _MAX_ITEMS]."""
@@ -155,18 +163,47 @@ def _line_f12(a5: torch.Tensor, c3: torch.Tensor, px: torch.Tensor, py: torch.Te
     return torch.stack([w0, z, z, c3, z, F.fq2_scale(a5, px)], -3)
 
 
+def pad_lanes(py, dbl_a5, dbl_c3, add_a5, add_c3) -> torch.Tensor:
+    """(m, npairs) bool: the lanes whose every line is exactly 1 (py = 1
+    and every line the loop reads zero: the doubling lines, and the
+    addition lines of the steps whose bit is set), whatever px holds."""
+    adds = torch.from_numpy(X_STEP_BITS == 1).to(py.device)
+    pad = (py == torch.from_numpy(F.ONE).to(py.device)).all(-1)
+    for t in (dbl_a5, dbl_c3, add_a5[adds], add_c3[adds]):
+        pad &= (t == 0).all(-1).all(-1).all(0)
+    return pad
+
+
+def _miller_lanes(px, py, dbl_a5, dbl_c3, add_a5, add_c3) -> torch.Tensor:
+    """The Miller loop of a (lanes,) batch, before its conjugation: the
+    first step's square of one skipped (f starts at the first line), then
+    per step the squaring and the sparse line products."""
+
+    def times_line(f, a5, c3):
+        return F.f12_mul_line(f, py, c3, F.fq2_scale(a5, px))
+
+    f = _line_f12(dbl_a5[0], dbl_c3[0], px, py)
+    for s, bit in enumerate(X_STEP_BITS):
+        if s:
+            f = times_line(F.f12_sqr(f), dbl_a5[s], dbl_c3[s])
+        if bit:
+            f = times_line(f, add_a5[s], add_c3[s])
+    return f
+
+
 @torch.inference_mode()
 def _miller_plain(px, py, dbl_a5, dbl_c3, add_a5, add_c3) -> torch.Tensor:
-    """K7a's plain version: the reference's Miller scan (the addition line
-    multiplied in only on the steps whose bit is set: the reference
-    computes both and selects), its conjugation, canonical limbs."""
-    f = F.f12_one(px.shape[:2], px.device)
-    for s, bit in enumerate(X_STEP_BITS):
-        f = F.f12_mul(f, f)
-        f = F.f12_mul(f, _line_f12(dbl_a5[s], dbl_c3[s], px, py))
-        if bit:
-            f = F.f12_mul(f, _line_f12(add_a5[s], add_c3[s], px, py))
-    return F.canonical(F.f12_conj(f))
+    """K7a's plain version: the lanes that are not pads through the Miller
+    loop (the addition line multiplied in only on the steps whose bit is
+    set: the reference computes both and selects) and its conjugation,
+    the pad lanes one; canonical limbs."""
+    lines = (dbl_a5, dbl_c3, add_a5, add_c3)
+    out = F.f12_one(px.shape[:2], px.device)
+    real = (~pad_lanes(py, *lines)).nonzero(as_tuple=True)
+    if real[0].numel():
+        f = _miller_lanes(px[real], py[real], *(t[:, real[0], real[1]] for t in lines))
+        out[real] = F.canonical(F.f12_conj(f))
+    return out
 
 
 def _check_lines(px, py, lines) -> tuple[int, int]:
@@ -191,9 +228,8 @@ def miller(px, py, dbl_a5, dbl_c3, add_a5, add_c3) -> torch.Tensor:
         return _miller_plain(px, py, *lines)
     out = torch.empty((m, npairs, 6, 2, F.LIMBS), dtype=torch.int32, device=px.device)
     MILLER(
-        px.data_ptr(), py.data_ptr(), *(t.data_ptr() for t in lines),
-        _bits_on("x", px.device).data_ptr(), out.data_ptr(), m * npairs,
-        *_build.stream_args(px),
+        px.data_ptr(), py.data_ptr(), *(t.data_ptr() for t in lines), out.data_ptr(),
+        m * npairs, *_build.stream_args(px),
     )
     return out
 
@@ -201,21 +237,57 @@ def miller(px, py, dbl_a5, dbl_c3, add_a5, add_c3) -> torch.Tensor:
 # -- K7b: the pair product and the final exponentiation ----------------------
 
 
-@torch.inference_mode()
-def _final_exp_plain(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7b's plain version: the reference's pair-axis product tree, easy
-    part and hard-part scan (the multiply only where a bit is set)."""
+def _cyclotomic_pow(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a in the cyclotomic subgroup (or zero): square-and-multiply
+    over e's bits after the leading one, Granger-Scott squarings."""
+    acc = a
+    for bit in bin(e)[3:]:
+        acc = F.f12_cyclotomic_sqr(acc)
+        if bit == "1":
+            acc = F.f12_mul(acc, a)
+    return acc
+
+
+def hard_part(g: torch.Tensor) -> torch.Tensor:
+    """g^((p^4 - p^2 + 1) / r) for g in the cyclotomic subgroup or zero, on
+    the x-chain: 314 cyclotomic squarings, 52 multiplies, one p- and one
+    p^2-Frobenius (x < 0, and conj is the inverse there)."""
+    a = F.f12_conj(_cyclotomic_pow(g, CHAIN_K))  # g^((x - 1) / 3)
+    b = F.f12_mul(F.f12_conj(_cyclotomic_pow(a, X_ABS)), F.f12_conj(a))  # a^(x - 1)
+    c = F.f12_mul(F.f12_conj(_cyclotomic_pow(b, X_ABS)), F.f12_frob(b))  # b^(x + p)
+    e = _cyclotomic_pow(_cyclotomic_pow(c, X_ABS), X_ABS)
+    e = F.f12_mul(F.f12_mul(e, F.f12_frob2(c)), F.f12_conj(c))  # c^(x^2 + p^2 - 1)
+    return F.f12_mul(e, g)
+
+
+def _lane_product(f: torch.Tensor) -> torch.Tensor:
+    """(m, npairs, 6, 2, 49) canonical lanes -> (m, 6, 2, 49), the product
+    over the pair axis of the lanes that are not exactly one (moved to
+    the front of each item, a product tree over them, padded with ones to
+    a power of two)."""
+    one = F.f12_one((), f.device)
+    rest = ~(f == one).flatten(2).all(-1)
+    order = torch.argsort((~rest).to(torch.int8), dim=1, stable=True)
+    width = 1
+    while width < int(rest.sum(1).max()):
+        width *= 2
+    f = torch.take_along_dim(f, order[:, :width, None, None, None], 1)
+    if f.shape[1] < width:
+        f = torch.cat([f, one.expand(f.shape[0], width - f.shape[1], *one.shape)], 1)
     while f.shape[1] > 1:
         half = f.shape[1] // 2
         f = F.f12_mul(f[:, :half], f[:, half:])
-    f = f[:, 0]
+    return f[:, 0]
+
+
+@torch.inference_mode()
+def _final_exp_plain(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7b's plain version: the pair-axis product of the lanes that are not
+    one, the reference's easy part, the hard part on the x-chain."""
+    f = _lane_product(f)
     f1 = F.f12_mul(F.f12_conj(f), F.f12_inv(f))
     f2 = F.f12_mul(F.f12_frob2(f1), f1)
-    acc = f2
-    for bit in HARD_STEP_BITS:
-        acc = F.f12_mul(acc, acc)
-        if bit:
-            acc = F.f12_mul(acc, f2)
+    acc = hard_part(f2)
     return F.f12_is_one(acc), F.canonical(acc)
 
 
@@ -231,10 +303,7 @@ def final_exp(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     m, npairs = f.shape[:2]
     ok = torch.empty(m, dtype=torch.bool, device=f.device)
     out = torch.empty((m, 6, 2, F.LIMBS), dtype=torch.int32, device=f.device)
-    FINAL_EXP(
-        f.data_ptr(), _bits_on("hard", f.device).data_ptr(), ok.data_ptr(), out.data_ptr(),
-        m, npairs, len(HARD_STEP_BITS), *_build.stream_args(f),
-    )
+    FINAL_EXP(f.data_ptr(), ok.data_ptr(), out.data_ptr(), m, npairs, *_build.stream_args(f))
     return ok, out
 
 

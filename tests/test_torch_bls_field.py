@@ -7,8 +7,9 @@ non-canonical one. Each JAX function is jitted and called once, on all the
 cases stacked.
 
 Also: the constants written into csrc/bls12_381.cuh (p, the Montgomery
-constants, the Frobenius^2 coefficients) against crypto/bls_math.py, and
-the Miller and hard-part bit schedules against the reference's.
+constants, the Frobenius and Frobenius^2 coefficients, the quotient
+estimate's 2^336 / p, the x-chain's exponents) against crypto/bls_math.py,
+and the Miller and hard-part bit schedules against the reference's.
 """
 
 import re
@@ -118,14 +119,31 @@ def _words(v: int) -> list[int]:
     return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(12)]
 
 
+def _limbs(v: int) -> list[int]:
+    return [(v >> (28 * i)) & 0xFFFFFFF for i in range(14)]
+
+
 def test_kernel_header_constants_match_bls_math():
-    """csrc/bls12_381.cuh carries p and its Montgomery constants (R =
-    2^384) as literals: each is checked here against bls_math's p."""
-    p, r = M.P, 1 << 384
+    """csrc/bls12_381.cuh carries p (as 12 words and as 14 limbs of 28
+    bits) and its Montgomery constants (R = 2^392) as literals: each is
+    checked here against bls_math's p."""
+    p, r = M.P, 1 << 392
     assert _header_words("kP") == _words(p)
-    assert _header_words("kOne") == _words(r % p)
-    assert _header_words("kR2") == _words(r * r % p)
-    assert _header_words("kFrob2") == sum((_words(pow(M.ZETA, i, p) * r % p) for i in range(6)), [])
-    pinv = int(re.search(r"kPInv = 0x([0-9a-f]+)u", HEADER.read_text()).group(1), 16)
-    assert (pinv * p) % (1 << 32) == (1 << 32) - 1
-    assert M.P == RM.P and M.ZETA == RM.ZETA
+    assert _header_words("kPL") == _limbs(p)
+    assert _header_words("kOne") == _limbs(r % p)
+    assert _header_words("kR2") == _limbs(r * r % p)
+    assert _header_words("kR3") == _limbs(r**3 % p)
+    assert _header_words("kFrob2") == sum((_limbs(pow(M.ZETA, i, p) * r % p) for i in range(6)), [])
+    # the p-Frobenius' conj(gamma_i), gamma_i = xi^(i (p - 1) / 6), (re, im) per i
+    gammas = [M.q2_pow(M.XI, i * (p - 1) // 6) for i in range(6)]
+    assert _header_words("kFrob1") == sum(
+        (_limbs(c * r % p) for g in gammas for c in (g[0], -g[1] % p)), [])
+    text = HEADER.read_text()
+    pinv = int(re.search(r"kPInv = 0x([0-9a-f]+)u", text).group(1), 16)
+    assert (pinv * p) % (1 << 28) == (1 << 28) - 1
+    qinv = float(re.search(r"kQInv = ([0-9.e+-]+);", text).group(1))
+    assert abs(qinv * p / 2**336 - 1) < 1e-15
+    # the x-chain's exponents: |x| and k = -(x - 1) / 3
+    assert int(re.search(r"kXAbs = 0x([0-9a-f]+)ull", text).group(1), 16) == -M.X_PARAM
+    assert int(re.search(r"kChainK = 0x([0-9a-f]+)ull", text).group(1), 16) == (1 - M.X_PARAM) // 3
+    assert M.P == RM.P and M.ZETA == RM.ZETA and M.X_PARAM == RM.X_PARAM

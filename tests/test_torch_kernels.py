@@ -16,7 +16,8 @@ operands the wrappers must copy (a transposed view, a misaligned view)
 or read in place (a broadcast constant). The BLS kernels (K7a
 bls_miller, K7b bls_final_exp) run on pairing buckets of real pairs and
 of p - 1 in every input with zero lines and pad pairs; K7b is also held
-against bls_math.final_exp.
+against bls_math.final_exp, and on an item whose product is zero. The
+pairing buckets include the paths' own, (2, 256) and (128, 2).
 """
 
 import numpy as np
@@ -251,15 +252,27 @@ def test_msm_on_card_is_limb_identical_to_cpu(card):
 
 def _pairing_inputs(m: int, npairs: int, device, worst: bool):
     """A (m, npairs) pairing bucket: real pairs (item i holds i + 1 pairs,
-    the rest pads), or p - 1 in every input with every second lane's lines
-    zero and every third lane a pad pair."""
-    if not worst:
+    the rest pads; in buckets of more than 8 lanes the pairs repeat 8
+    prepared ones, item 0 holds 151 at npairs 256 as the aggregate path's
+    item does, and the last quarter of the items none), or p - 1 in every
+    input with every second lane's lines zero and every third lane a pad
+    pair."""
+    if not worst and m * npairs <= 8:
         items = [
             [(BM.g1_mul(BM.G1_GEN, 3 + i + j), BM.hash_to_point_g2(b"k7-%d-%d" % (i, j)))
              for j in range(min(i + 1, npairs))]
             for i in range(m)
         ]
         return [torch.from_numpy(a).to(device) for a in BP.prepare_pairing_batch(items, m, npairs)[0]]
+    if not worst:
+        pool = [[(BM.g1_mul(BM.G1_GEN, 3 + k), BM.hash_to_point_g2(b"k7-%d" % k))] for k in range(8)]
+        base = BP.prepare_pairing_batch(pool, 8, 2)[0]  # lane (k, 0) pair k, lane (k, 1) a pad
+        real = [151 if npairs == 256 and i == 0 else min(i + 1, npairs) for i in range(m)]
+        real[m - m // 4:] = [0] * (m // 4)
+        item = torch.tensor([[(i + j) % 8 for j in range(npairs)] for i in range(m)])
+        pair = torch.tensor([[int(j >= real[i]) for j in range(npairs)] for i in range(m)])
+        return [(torch.from_numpy(a)[:, item, pair] if a.ndim == 5 else
+                 torch.from_numpy(a)[item, pair]).contiguous().to(device) for a in base]
     pm1 = torch.from_numpy(BF.int_to_limbs(BM.P - 1))
     shapes = [(m, npairs, 49)] * 2 + [(63, m, npairs, 2, 49)] * 4
     out = [pm1.expand(s).clone() for s in shapes]
@@ -273,7 +286,7 @@ def _pairing_inputs(m: int, npairs: int, device, worst: bool):
     return [t.to(device) for t in out]
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (4, 2), (2, 4)])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2), (2, 4), (2, 256), (128, 2)])
 @pytest.mark.parametrize("worst", [False, True])
 def test_bls_miller_kernel_equals_plain(card, shape, worst):
     ins = _pairing_inputs(*shape, card, worst)
@@ -283,7 +296,7 @@ def test_bls_miller_kernel_equals_plain(card, shape, worst):
     assert torch.equal(got, BP._miller_plain(*ins))
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4), (2, 256), (128, 2)])
 @pytest.mark.parametrize("worst", [False, True])
 def test_bls_final_exp_kernel_equals_plain(card, shape, worst):
     lanes = BP.miller(*_pairing_inputs(*shape, card, worst))
@@ -297,6 +310,20 @@ def test_bls_final_exp_kernel_equals_plain(card, shape, worst):
     for j in range(shape[1]):
         prod = BM.f12_mul(prod, tuple(BF.limbs_to_int(f[j, i, k]) for i in range(6) for k in range(2)))
     assert tuple(BF.limbs_to_int(c[i, k]) for i in range(6) for k in range(2)) == BM.final_exp(prod)
+
+
+def test_bls_final_exp_kernel_keeps_a_zero_product_zero(card):
+    """An item with a zero lane has product zero, and zero's final
+    exponentiation is zero (the reference's norm inverse maps 0 to 0);
+    beside it lanes of p - 1 and of one."""
+    f = torch.from_numpy(BF.int_to_limbs(BM.P - 1)).expand(2, 4, 6, 2, 49).clone()
+    f[0, 1] = 0
+    f[:, 2] = BF.f12_one()
+    f = f.to(card)
+    ok, out = BP.final_exp(f)
+    want_ok, want = BP._final_exp_plain(f)
+    assert torch.equal(ok, want_ok) and torch.equal(out, want)
+    assert not bool(ok[0]) and not bool(out[0].any())
 
 
 def test_bls_kernels_refuse_wrong_operands(card):
