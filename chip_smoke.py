@@ -122,8 +122,7 @@ failure exits non-zero, nothing is caught and carried past):
      also an item whose product is zero, which must come out zero and not
      one), and K7b against bls_math.final_exp on 2 items of the (128, 2)
      bucket; each gets a timed `kernels` row (CUDA events around many
-     launches) at (2, 256) and at (128, 2), with its serial chain counted
-     beside the reference's;
+     launches, through its wrapper) at (2, 256) and at (128, 2);
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
@@ -229,10 +228,9 @@ LIMB_BYTES = 32 * 4
 # (bls_pairing.HARD_STEP_BITS: 1,267 squarings and 632 multiplies). The
 # work is what this run's data needs: a pad lane (every line exactly 1)
 # needs no Miller loop and a lane of value one no product, so the bound
-# counts the other lanes (`bound_ms_all_lanes` counts every lane, as
-# PR 7's rows did). One 381-bit product is priced at 12 x 12 32-bit
-# multiply-adds, twice for the reduction, at the rate above (a
-# multiply-add is two operations).
+# counts the other lanes (PR 7's rows counted every lane). One 381-bit
+# product is priced at 12 x 12 32-bit multiply-adds, twice for the
+# reduction, at the rate above (a multiply-add is two operations).
 FP381_OPS = 2 * 2 * 12 * 12
 F12_FP = 144
 BLS_LIMB_BYTES = 49 * 4
@@ -262,48 +260,6 @@ def _final_exp_cost(m: int, npairs: int, real: list) -> tuple[int, int]:
     one: (m, npairs, 6, 2, 49) in, (m, 6, 2, 49) and m flags out."""
     n_bytes = BLS_LIMB_BYTES * 12 * (m * npairs + m) + m
     return n_bytes, sum(_final_exp_chain(n)[1] for n in real) * FP381_OPS
-
-
-# K7b's own serial chain, counted from csrc/bls_final_exp.cu: the pair
-# product in chunks of 24 lanes, the lanes that are not one dealt to four
-# groups (one round of Fq12 products per four), two rounds joining the
-# groups; the easy part's 8 Fq12 products and 6 Frobenius^2 maps, and in
-# one thread the inverse's 8 products and Kaliski's almost inverse; the
-# x-chain's 314 cyclotomic squarings, 52 Fq12 products, a p- and a
-# p^2-Frobenius. Each operation is one stage of Fp products, one product
-# deep (f12_mul 108 products, the cyclotomic squaring 27, f12_frob 18,
-# f12_frob2 12).
-FINAL_CHUNK, FINAL_GROUPS = 24, 4
-CYCLO_FP, FROB_FP, FROB2_FP, KARATSUBA_F12_FP = 27, 18, 12, 108
-# K7a's per real lane: 62 general squarings (63 products), 67 sparse line
-# products (48), against the reference's 131 Fq12 products of 144
-MILLER_CHAIN = {"f12_sqr": 62, "line_products": 67, "fp_products": 62 * 63 + 67 * 48,
-                "reference_fp_products": MILLER_F12 * F12_FP}
-
-
-def _final_exp_kernel_chain(not_one) -> dict:
-    """The serial chain of K7b's longest item, from `not_one` (m, npairs)
-    bool: which lanes are not exactly one."""
-    rounds = 0
-    for row in not_one.cpu().tolist():
-        r = 0
-        for base in range(0, len(row), FINAL_CHUNK):
-            n = sum(row[base:base + FINAL_CHUNK])
-            r += -(-n // FINAL_GROUPS)
-        rounds = max(rounds, r)
-    f12 = rounds + 2 + 8 + 52
-    frob2 = 6 + 1
-    return {
-        "pair_product_rounds": rounds,
-        "f12_products": f12,
-        "cyclotomic_squarings": 314,
-        "frobenius": 1,
-        "frobenius2": frob2,
-        "inverse": "Kaliski's almost inverse in one thread, with 8 products around it",
-        "serial_operations": f12 + 314 + 1 + frob2,
-        "fp_products": f12 * KARATSUBA_F12_FP + 314 * CYCLO_FP + FROB_FP + frob2 * FROB2_FP + 8,
-        "reference_f12_products": _final_exp_chain(len(not_one[0]))[0],
-    }
 
 
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -2035,14 +1991,14 @@ def _hold_bls(kernel, what, run, plain) -> int:
     return max(int((g.long() - w.long()).abs().max().item()) for g, w in zip(got, want))
 
 
-def _bls_row(kernel, shape, run, plain, cost, cost_all, reps) -> dict:
-    """A `kernels` row for K7a or K7b at `shape` (m, npairs): the kernel
-    timed by CUDA events around `reps` launches through its wrapper,
-    median of three repeats (torch.profiler recorded no device events in
-    most repeats of these rows in PR 7; at these kernels' lengths the
-    wrapper's host time hides behind the launches), and its plain version
-    once (CUDA events). `cost` is the (bytes, operations) of this run's
-    data, `cost_all` of every lane."""
+def _bls_row(kernel, shape, run, plain, cost, reps) -> dict:
+    """A `kernels` row for K7a or K7b at `shape` (m, npairs): `ms` is the
+    kernel timed by CUDA events around `reps` launches through its
+    wrapper, median of three repeats (torch.profiler recorded no device
+    events in most repeats of these rows in PR 7; at these kernels'
+    lengths the wrapper's host time hides behind the launches), and its
+    plain version once (CUDA events). `cost` is the (bytes, operations)
+    of this run's data."""
     import torch
 
     n_bytes, n_ops = cost
@@ -2068,13 +2024,11 @@ def _bls_row(kernel, shape, run, plain, cost, cost_all, reps) -> dict:
         "ms_repeats": repeats,
         "launches_timed": reps,
         "share_of_bound": bound_ms / ms,
-        "wrapper_ms": ms,
         "plain_ms": start.elapsed_time(end),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "bound_ops": n_ops,
         "bound_bytes": n_bytes,
-        "bound_ms_all_lanes": _bound(*cost_all)[0],
         "library_ms": None,  # no PyTorch call computes a Miller loop or a final exponentiation
     }
 
@@ -2137,21 +2091,14 @@ def check_bls_kernels(dev, audit: PairingAudit, main_shape, per_sig_shape) -> tu
             if kernel is BP.MILLER:
                 run, plain = (lambda i=ins: BP.miller(*i)), (lambda i=ins: BP._miller_plain(*i))
                 real = int((~BP.pad_lanes(*ins[1:])).sum())
-                row = _bls_row(kernel, shape, run, plain, _miller_cost(m, npairs, real),
-                               _miller_cost(m, npairs, m * npairs), 50)
+                row = _bls_row(kernel, shape, run, plain, _miller_cost(m, npairs, real), 50)
                 row["real_lanes"] = real
-                row["chain_per_lane"] = MILLER_CHAIN
             else:
                 (f,) = ins
                 run, plain = (lambda x=f: BP.final_exp(x)), (lambda x=f: BP._final_exp_plain(x))
-                not_one = ~(f == BF.f12_one((), dev)).flatten(2).all(-1)
-                real = not_one.sum(1).tolist()
-                row = _bls_row(kernel, shape, run, plain, _final_exp_cost(m, npairs, real),
-                               _final_exp_cost(m, npairs, [npairs] * m), 20)
+                real = (~(f == BF.f12_one((), dev)).flatten(2).all(-1)).sum(1).tolist()
+                row = _bls_row(kernel, shape, run, plain, _final_exp_cost(m, npairs, real), 20)
                 row["lanes_not_one"] = real
-                row["chain"] = _final_exp_kernel_chain(not_one)
-                f12, fp = _final_exp_chain(npairs)
-                row["reference_chain"] = {"f12_products": f12, "fp_products": fp}
             row["path"] = path
             rows.append(row)
     return rows, {"held": held, "final_exp_vs_bls_math": vs_math}
@@ -2444,11 +2391,18 @@ def main() -> int:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
         row.setdefault("main_path_device_ms", bd["ported_kernels_device_ms"][row["name"]])
     for row in bls_rows:
-        # the BLS path's own main run: the aggregate passes of phase 14
-        row["launches"] = bls["launches"][row["name"]]
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
-        row["main_path_device_ms"] = (bls["verify_commit"]["device_ms"][row["name"]]
-                                      / N_AB_COMMITS)
+        if row["path"] == BLS_MAIN:
+            # the BLS slice's main run: the aggregate passes of phase 14,
+            # whose device time the profiler took
+            row["launches"] = bls["launches"][row["name"]]
+            row["main_path_device_ms"] = (bls["verify_commit"]["device_ms"][row["name"]]
+                                          / N_AB_COMMITS)
+        else:
+            # the per-signature pass's own run, counted from 0; it is not
+            # profiled
+            row["launches"] = by_path[row["path"]][row["name"]]
+            row["main_path_device_ms"] = None
         rows.append(row)
 
     print(json.dumps({"slice": run["slice"]}))

@@ -4,8 +4,9 @@
     python3 scripts/bls_bench/run.py
 
 Builds bench.cu (beside this file) against
-tendermint_tpu_torch/crypto/cuda/csrc/bls12_381.cuh with nvcc for sm_90a
-into build/bls_bench/ at the root of the checkout, and prints one JSON
+tendermint_tpu_torch/crypto/cuda/csrc/bls12_381.cuh with the kernels' own
+nvcc command (`_build.nvcc_command`: sm_90a, the same flags) into
+build/bls_bench/ at the root of the checkout, and prints one JSON
 object: cycles per call (clock64 around a loop of dependent calls in one
 block) of `fp_mul`, of a Wide sum of 7 and of 19 terms with its
 reduction, of `fp_inv` (also in CUDA-event ms for 20 calls), of a
@@ -28,7 +29,6 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
-CSRC = os.path.join(ROOT, "tendermint_tpu_torch", "crypto", "cuda", "csrc")
 OUT = os.path.join(ROOT, "build", "bls_bench")
 P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
 OPS = ["f12_mul", "cyclotomic_sqr", "f12_sqr", "f12_mul_line", "frob", "frob2", "conj"]
@@ -40,17 +40,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bls_bench: no CUDA device is available", file=sys.stderr)
         return 2
+    sys.path.insert(0, ROOT)
+    from tendermint_tpu_torch.crypto.cuda import _build
+
     os.makedirs(OUT, exist_ok=True)
     lib = os.path.join(OUT, "libbench.so")
-    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    build = subprocess.run(
-        [os.path.join(cuda, "bin", "nvcc"), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", CSRC, "-o", lib, os.path.join(HERE, "bench.cu")],
-        capture_output=True, text=True)
+    cmd = _build.nvcc_command(os.path.join(HERE, "bench.cu"), lib)
+    build = subprocess.run(cmd, capture_output=True, text=True)
     if build.returncode:
         print(build.stdout + build.stderr, file=sys.stderr)
         return 1
-    sass = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass", lib],
+    sass = subprocess.run([os.path.join(os.path.dirname(cmd[0]), "cuobjdump"), "-sass", lib],
                           capture_output=True, text=True).stdout
     instructions = {}
     for f in re.split(r"\n\s*Function : ", sass)[1:]:

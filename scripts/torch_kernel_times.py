@@ -14,11 +14,12 @@ whether its output equals its plain version's. B1-B3 are timed by
 torch.profiler, K7a and K7b by CUDA events around 20 and 10 launches
 (the profiler recorded no device events for most of their repeats),
 three repeats each. The inputs come from a fixed seed with limbs in [0,
-512), and the pairing buckets from 8 fixed pairs, laid out as the paths
-lay them out (at (2, 256) item 0 holds 151 real pairs and item 1 none;
-at (128, 2) 101 items hold 2 real pairs and 27 none): the same for every
-checkout, so the lines of two checkouts run in one call compare like
-with like. Exits non-zero without a card.
+512), and the pairing buckets from `testing.make_pairing_bucket` (8
+fixed pairs, laid out as the paths lay them out: at (2, 256) item 0
+holds 151 real pairs and item 1 none; at (128, 2) 101 items hold 2 real
+pairs and 27 none), so the lines of two checkouts run in one call
+compare like with like; a checkout must have that builder (PR 8 on).
+Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -82,25 +83,8 @@ def main() -> int:
             lambda f=first, r=rest: msm._scan_blocks_plain(f, r),
         ))
 
-    from tendermint_tpu_torch.crypto import bls_math
+    from tendermint_tpu_torch import testing as tt
     from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
-
-    pairs = [(bls_math.g1_mul(bls_math.G1_GEN, 3 + i), bls_math.hash_to_point_g2(b"times-%d" % i))
-             for i in range(8)]
-    # lane (i, 0) of `base` is pair i, lane (i, 1) a pad pair
-    base = BP.prepare_pairing_batch([[pq] for pq in pairs], 8, 2)[0]
-
-    def bucket(real):
-        """(m, npairs) arrays: item i holds real[i] real pairs, then pads."""
-        m, npairs = len(real), 2 if max(real) <= 2 else 256
-        src_item = torch.tensor([[j % 8 if j < n else 0 for j in range(npairs)] for n in real])
-        src_pair = torch.tensor([[0 if j < n else 1 for j in range(npairs)] for n in real])
-        out = []
-        for a in base:
-            t = torch.from_numpy(a)
-            t = t[src_item, src_pair] if t.dim() == 3 else t[:, src_item, src_pair]
-            out.append(t.contiguous().to(dev))
-        return out
 
     def events_ms(fn, reps):
         fn()
@@ -115,7 +99,7 @@ def main() -> int:
 
     bls_rows = []
     for shape, real in (((2, 256), [151, 0]), ((128, 2), [2] * 101 + [0] * 27)):
-        ins = bucket(real)
+        ins = tt.make_pairing_bucket(real, shape[1], dev)
         lanes = BP.miller(*ins)
         for name, reps, run, plain in (
             ("bls_miller", 2 * REPS, lambda i=ins: BP.miller(*i), lambda i=ins: BP._miller_plain(*i)),

@@ -54,6 +54,12 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_command(src, out) -> list[str]:
+    """The nvcc command that builds the CUDA source `src` (which may
+    include csrc/'s headers) into the shared library `out`."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def _build_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
@@ -75,10 +81,9 @@ def build_all() -> dict[str, Path]:
             if lib.exists():
                 continue
             tmp = out_dir / f".lib{src.stem}.{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
             procs.append(
                 (src, lib, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                    nvcc_command(src, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
                 ))
             )
         failed = []

@@ -1,5 +1,5 @@
 """Test/bench fixtures: deterministic validator sets, signed commits,
-light chains and kvstore chains (the subset of tendermint_tpu/testing.py
+light chains, kvstore chains and pairing buckets (the subset of tendermint_tpu/testing.py
 the commit, block-sync and light-client paths need, and the chain build
 of bench.py's block-sync bench). Keys derive from the same seeds as the reference's, so both
 packages build the same validators and addresses, and the same
@@ -169,6 +169,26 @@ def make_list_provider(blocks, chain_id: str = "light-chain"):
 
     return ListProvider()
 
+
+
+def make_pairing_bucket(real: list[int], npairs: int, device=DEFAULT_DEVICE) -> list:
+    """K7a's six input arrays for a (len(real), npairs) pairing bucket
+    laid out as the BLS paths lay theirs out: item i holds real[i] real
+    pairs, then pad pairs. The real pairs repeat 8 prepared ones
+    (([3 + k] G1, hash_to_point_g2(b"k7-%d" % k)), lane (i, j) pair
+    (i + j) % 8), so a bucket of any size costs 8 hashes to G2."""
+    import torch
+
+    from .crypto import bls_math
+    from .crypto.cuda import bls_pairing
+
+    pool = [[(bls_math.g1_mul(bls_math.G1_GEN, 3 + k), bls_math.hash_to_point_g2(b"k7-%d" % k))]
+            for k in range(8)]
+    base = bls_pairing.prepare_pairing_batch(pool, 8, 2)[0]  # lane (k, 0) pair k, (k, 1) a pad
+    item = torch.tensor([[(i + j) % 8 for j in range(npairs)] for i in range(len(real))])
+    pair = torch.tensor([[int(j >= n) for j in range(npairs)] for n in real])
+    return [(torch.from_numpy(a)[:, item, pair] if a.ndim == 5 else
+             torch.from_numpy(a)[item, pair]).contiguous().to(device) for a in base]
 
 def make_genesis(
     keys, chain_id: str, *, power: int = 10, genesis_time_ns: int = 1_700_000_000_000_000_000

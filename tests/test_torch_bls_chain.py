@@ -21,6 +21,7 @@ import torch
 
 from tendermint_tpu.crypto import bls_math as RM
 from tendermint_tpu.crypto.tpu import bls_field as R
+from tendermint_tpu_torch import testing as tt
 from tendermint_tpu_torch.crypto import bls_math as M
 from tendermint_tpu_torch.crypto.cuda import bls_field as F
 from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
@@ -158,6 +159,19 @@ def test_pad_lane_miller_value_is_exactly_one():
     assert torch.equal(out[0, 1], F.f12_one())
     assert _ints(out[0, 0]) == M.miller_loop(M.G1_GEN, M.prepare_lines(q))
     assert _ints(out[0, 2]) == M.miller_loop((M.G1_GEN[0], 1), M.prepare_lines(q))
+
+
+def test_pairing_bucket_holds_real_pairs_then_pads():
+    """testing.make_pairing_bucket (the card tests' and the timing
+    script's buckets): item i's first real[i] lanes are real pairs, lane
+    (i, j) the pair (i + j) % 8 of the pool, and the rest pad pairs."""
+    real = [3, 1, 0]
+    ins = tt.make_pairing_bucket(real, 4, "cpu")
+    assert [tuple(t.shape) for t in ins] == [(3, 4, 49)] * 2 + [(63, 3, 4, 2, 49)] * 4
+    assert BP.pad_lanes(*ins[1:]).tolist() == [[j >= n for j in range(4)] for n in real]
+    q = M.hash_to_point_g2(b"k7-%d" % 2)
+    out = BP._miller_plain(*ins)
+    assert _ints(out[0, 2]) == M.miller_loop(M.g1_mul(M.G1_GEN, 5), M.prepare_lines(q))
 
 
 def test_lane_product_skips_exact_ones_whatever_their_place(rng):

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from tendermint_tpu_torch import testing as tt
 from tendermint_tpu_torch.crypto import bls_math as BM
 from tendermint_tpu_torch.crypto.cuda import bls_field as BF
 from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
@@ -265,14 +266,9 @@ def _pairing_inputs(m: int, npairs: int, device, worst: bool):
         ]
         return [torch.from_numpy(a).to(device) for a in BP.prepare_pairing_batch(items, m, npairs)[0]]
     if not worst:
-        pool = [[(BM.g1_mul(BM.G1_GEN, 3 + k), BM.hash_to_point_g2(b"k7-%d" % k))] for k in range(8)]
-        base = BP.prepare_pairing_batch(pool, 8, 2)[0]  # lane (k, 0) pair k, lane (k, 1) a pad
         real = [151 if npairs == 256 and i == 0 else min(i + 1, npairs) for i in range(m)]
         real[m - m // 4:] = [0] * (m // 4)
-        item = torch.tensor([[(i + j) % 8 for j in range(npairs)] for i in range(m)])
-        pair = torch.tensor([[int(j >= real[i]) for j in range(npairs)] for i in range(m)])
-        return [(torch.from_numpy(a)[:, item, pair] if a.ndim == 5 else
-                 torch.from_numpy(a)[item, pair]).contiguous().to(device) for a in base]
+        return tt.make_pairing_bucket(real, npairs, device)
     pm1 = torch.from_numpy(BF.int_to_limbs(BM.P - 1))
     shapes = [(m, npairs, 49)] * 2 + [(63, m, npairs, 2, 49)] * 4
     out = [pm1.expand(s).clone() for s in shapes]
