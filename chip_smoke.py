@@ -123,6 +123,41 @@ failure exits non-zero, nothing is caught and carried past):
      one), and K7b against bls_math.final_exp on 2 items of the (128, 2)
      bucket; each gets a timed `kernels` row (CUDA events around many
      launches, through its wrapper) at (2, 256) and at (128, 2);
+ 15. state sync (run after phase 14, before the audit): bench.py's
+     bench_statesync(64, 21) (BASELINE config 5) on the port — a 64-block
+     kvstore chain of 21 ed25519 validators of power 10 (a tx every third
+     height, the app's snapshots every 10), built on the host (seconds
+     printed), restored by a joining StateSyncReactor from the snapshot at
+     60 and backfilled through verify_backfill_batch (59 headers, one
+     window of 885 signatures) on the card, and the same scenario on the
+     host in turns (floor, card, card, floor): every run must hold the
+     same 60 headers and restore the same State; prints each run's wall,
+     headers/s, the route of every batch (reported, not asserted: at 885
+     signatures the router's cutoff sends the window to the host) and the
+     launches. A tampered window (height 30's commit with a flipped bit in
+     signature 0) must make the joiner punish the donor with a ban and
+     stop the backfill. Then the BLS-committee backfill: 16 heights of 21
+     bls12381 validators, each commit folded into its aggregate, through
+     verify_backfill_batch on the card: backfill_agg_heights must be 16,
+     K7a and K7b must each launch 16 times at the (2, 32) bucket, and are
+     then held torch.equal to their plain versions there (path and
+     worst-case inputs); prints the wall per height and the host split; a
+     tampered aggregate at the sixth height must raise naming that height
+     and count nothing;
+ 16. SHA-256 (B8): the kernel torch.equal to its plain version, and its
+     digests equal to hashlib's, at every bucket shape (T in 1, 2, 4, 8
+     blocks by B in 16, 256, 4,096 messages) with lengths across the
+     padding edges mixed in each bucket; a 504-byte message must raise.
+     Then bench_merkle's leaves half (bench.py:855-947): 64 / 1,024 /
+     16,384 leaves of 250 bytes, scalar recursive, batched on the host,
+     and batched through the HashHub's device route (`use_device`, with
+     MIN_DEVICE_BATCH = 1 as bench.py sets it): every root equal to the
+     scalar one, the route counted and the kernel launched on each device
+     run; prints leaves/s and the route's split (host preparation, the
+     copies, the kernel by CUDA events) at the 16,384-leaf level and an
+     8,192-node inner level; B8 gets `kernels` rows at (4,096, 8) (the
+     250-byte leaves, 5 real blocks) and (4,096, 2) (the 65-byte inner
+     nodes), bound by the card's int32 rate;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
@@ -139,7 +174,8 @@ Each path's launch counts are set to 0 just before it and read just
 after (the block-sync reactor verifies in a worker thread; its launches
 count too). Prints the card's name and power limit, `breakdown`,
 `sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `light`, `bls`,
-`shapes`, `slice`, `kernels` and `script_wall_s` JSON lines, and last {"ok": true,
+`statesync`, `sha256`, `shapes`, `slice`, `kernels` and `script_wall_s`
+JSON lines, and last {"ok": true,
 "device": {...}}. Imports nothing of JAX or of the JAX
 package. Build output goes to build/torch_ext/.
 """
@@ -193,6 +229,24 @@ AB_BASE_TS = 1_700_000_000_000_000_000
 # aggregation; the tampered per-signature commit: a flipped bit in its
 # signature
 AB_TAMPER_VAL = 7
+# phase 15, bench.py's bench_statesync(64, 21) (BASELINE config 5): 21
+# ed25519 validators of power 10, a 64-block kvstore chain (snapshots every
+# 10 heights: the restore takes the one at 60 and backfills 59 headers in
+# one window); the tampered window's commit at this height carries a
+# flipped bit in signature 0. Then the BLS-committee backfill: a light
+# chain of this many heights of 21 bls12381 validators, each commit folded
+# into its aggregate; the tampered height's aggregate has validator
+# AB_TAMPER_VAL's signature over other bytes
+N_SS_BLOCKS = 64
+N_SS_VALS = 21
+# the newest snapshot whose heights h + 1 and h + 2 exist to verify it
+SS_SNAPSHOT_HEIGHT = 60
+SS_TAMPER_HEIGHT = 30
+N_SS_BLS_HEIGHTS = 16
+SS_BLS_TAMPER_INDEX = 5
+SS_CHAIN_ID = "ss-bls-chain"
+# phase 16, bench.py's bench_merkle leaves half: 250-byte leaves
+MERKLE_LEAVES = (64, 1024, 16384)
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # CUDA-core float32 rate (an FMA counted as two operations). All three
@@ -262,8 +316,26 @@ def _final_exp_cost(m: int, npairs: int, real: list) -> tuple[int, int]:
     return n_bytes, sum(_final_exp_chain(n)[1] for n in real) * FP381_OPS
 
 
-def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / CORE_OPS_PER_S
+# B8 (sha256) is 32-bit integer work: the H100's rate for it is 64 INT32
+# lanes per SM (the SM's four partitions of 16), 132 SMs, at the SM clock
+# (`nvidia-smi --query-gpu=clocks.max.sm`; 1,980 MHz on the H100 SXM). Its
+# operations per compression block, counted from csrc/sha256.cu: 48
+# schedule words of 13 (two funnel shifts, a shift and two xors per sigma,
+# three adds), 64 rounds of 26 (Sigma1 5, Ch 4, T1 4 adds, Sigma0 5, Maj
+# 5, e and a 3 adds), and the 8 adds into the state.
+INT32_LANES_PER_SM = 64
+H100_SMS = 132
+SHA256_BLOCK_OPS = 48 * 13 + 64 * 26 + 8
+
+
+def _int32_ops_per_s() -> float:
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return H100_SMS * INT32_LANES_PER_SM * float(mhz) * 1e6
+
+
+def _bound(n_bytes: float, n_ops: float, ops_per_s: float = CORE_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -371,10 +443,10 @@ def _hold(kernel, what, run, plain) -> int:
     return int((got - want).abs().max().item())
 
 
-def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps) -> dict:
+def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps, ops_per_s=CORE_OPS_PER_S) -> dict:
     """A `kernels` row: held against the plain version, then timed."""
     err = _hold(kernel, f"m={m}", run, plain)
-    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    bound_ms, bound_by = _bound(n_bytes, n_ops, ops_per_s)
     # the kernel alone on the card (profiler), three repeats
     repeats = [_device_ms(run, reps, name=f"{kernel.name}_kernel") for _ in range(3)]
     wrappers = [_time_ms(run, reps) for _ in range(3)]
@@ -403,6 +475,7 @@ def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps) -> dict:
         "plain_device_ms": _device_ms(plain, 1),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_ops_per_s": ops_per_s,
         "library_ms": None,  # no single PyTorch call computes these
     }
 
@@ -1104,6 +1177,28 @@ def build_chain(n_vals: int, n_blocks: int) -> dict:
             "build_s": time.perf_counter() - t0}
 
 
+@contextlib.contextmanager
+def _batch_routes():
+    """Every `AdaptiveBatchVerifier.verify` call while the block runs: its
+    size and route ("cuda" or "cpu"). The router's verify is wrapped, not
+    changed."""
+    from tendermint_tpu_torch.crypto import batch
+
+    real = batch.AdaptiveBatchVerifier.verify
+    routes: list[tuple[int, str]] = []
+
+    def verify(bv):
+        out = real(bv)
+        routes.append((len(bv._items), bv.last_route))
+        return out
+
+    batch.AdaptiveBatchVerifier.verify = verify
+    try:
+        yield routes
+    finally:
+        batch.AdaptiveBatchVerifier.verify = real
+
+
 class RangeLog:
     """Each `verify_commit_range` call of the block-sync reactor: its
     blocks, the signatures it batches (light semantics: block votes in
@@ -1122,15 +1217,8 @@ class RangeLog:
     @contextlib.contextmanager
     def recording(self):
         from tendermint_tpu_torch.blocksync import reactor as R
-        from tendermint_tpu_torch.crypto import batch
 
-        real_range, real_verify = R.verify_commit_range, batch.AdaptiveBatchVerifier.verify
-        routes: list[tuple[int, str]] = []
-
-        def verify(bv):
-            out = real_verify(bv)
-            routes.append((len(bv._items), bv.last_route))
-            return out
+        real_range = R.verify_commit_range
 
         def verify_commit_range(chain_id, entries, **kw):
             before = len(routes)
@@ -1153,11 +1241,12 @@ class RangeLog:
                 })
 
         calls: list[tuple] = []
-        R.verify_commit_range, batch.AdaptiveBatchVerifier.verify = verify_commit_range, verify
+        R.verify_commit_range = verify_commit_range
         try:
-            yield self
+            with _batch_routes() as routes:
+                yield self
         finally:
-            R.verify_commit_range, batch.AdaptiveBatchVerifier.verify = real_range, real_verify
+            R.verify_commit_range = real_range
             for (chain_id, entries), rec in zip(calls, self.ranges):
                 self.items.append(range_items(entries, chain_id))
                 rec["sigs"] = len(self.items[-1])
@@ -2033,16 +2122,12 @@ def _bls_row(kernel, shape, run, plain, cost, reps) -> dict:
     }
 
 
-def check_bls_kernels(dev, audit: PairingAudit, main_shape, per_sig_shape) -> tuple[list, dict]:
-    """Phase 14's kernel checks: K7a and K7b torch.equal to their plain
-    versions on the card at every (items, pairs) shape the BLS paths gave
-    them, on the inputs the path gave and on worst-case inputs of the
-    shape (for K7b also with a zero product, which must stay zero); K7b's
-    results against bls_math.final_exp on 2 items of the per-signature
-    bucket. Then a timed row per kernel at `main_shape` and at
-    `per_sig_shape`."""
-    from tendermint_tpu_torch.crypto import bls_math
-    from tendermint_tpu_torch.crypto.cuda import bls_field as BF
+def _hold_pairing_shapes(dev, audit: PairingAudit) -> list:
+    """K7a and K7b torch.equal to their plain versions at every (items,
+    pairs) shape `audit` recorded, on the inputs the path gave and on
+    worst-case inputs of the shape (for K7b also with a zero product,
+    which must stay zero). Returns what was held, with the calls per
+    path."""
     from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
 
     held = []
@@ -2062,6 +2147,22 @@ def check_bls_kernels(dev, audit: PairingAudit, main_shape, per_sig_shape) -> tu
             if bool(ok[-1]) or bool(out[-1].any()):
                 raise AssertionError(f"bls_final_exp {shape}: a zero product did not stay zero")
         held.append({"kernel": name, "shape": list(shape), "calls": rec["calls"]})
+    return held
+
+
+def check_bls_kernels(dev, audit: PairingAudit, main_shape, per_sig_shape) -> tuple[list, dict]:
+    """Phase 14's kernel checks: K7a and K7b torch.equal to their plain
+    versions on the card at every (items, pairs) shape the BLS paths gave
+    them, on the inputs the path gave and on worst-case inputs of the
+    shape (for K7b also with a zero product, which must stay zero); K7b's
+    results against bls_math.final_exp on 2 items of the per-signature
+    bucket. Then a timed row per kernel at `main_shape` and at
+    `per_sig_shape`."""
+    from tendermint_tpu_torch.crypto import bls_math
+    from tendermint_tpu_torch.crypto.cuda import bls_field as BF
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+
+    held = _hold_pairing_shapes(dev, audit)
 
     def ints(t):
         c = t.cpu().numpy()
@@ -2287,6 +2388,410 @@ def drive_bls(dev) -> dict:
     }
 
 
+SS_MAIN = "statesync[restore, ed25519 backfill]"
+SS_TAMPERED = "statesync[tampered ed25519 window]"
+SS_BLS = "statesync[bls backfill]"
+SS_BLS_TAMPERED = "statesync[bls backfill, tampered aggregate]"
+
+
+def _restore(dev, source, *, tamper_height: int | None = None) -> dict:
+    """One run of `testing.statesync_restore_scenario(N_SS_BLOCKS,
+    N_SS_VALS)` on `dev`, serving `source` through a fresh connection to
+    its app (a new lock in this run's event loop). With `tamper_height`,
+    the donor serves that height's commit with a flipped bit in signature
+    0. Returns the held headers, the restored State's bytes, the held
+    header hashes, the joiner's BootD stats, the routes of every batch,
+    the backfill windows and the errors the joiner reported."""
+    import asyncio
+    from dataclasses import replace
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.proxy import AppConns
+
+    bstore, sstore, conns, genesis = source
+    load = bstore.load_block_commit
+    if tamper_height is not None:
+        def load_block_commit(height):
+            commit = load(height)
+            if height != tamper_height:
+                return commit
+            sigs = list(commit.signatures)
+            bad = sigs[0].signature[:-1] + bytes([sigs[0].signature[-1] ^ 0x01])
+            sigs[0] = replace(sigs[0], signature=bad)
+            return replace(commit, signatures=tuple(sigs))
+
+        bstore.load_block_commit = load_block_commit
+    report: dict = {}
+    trace.RECORDER.clear()
+    try:
+        with _batch_routes() as routes:
+            t0 = time.perf_counter()
+            held = asyncio.run(tt.statesync_restore_scenario(
+                N_SS_BLOCKS, N_SS_VALS, device=dev,
+                source=(bstore, sstore, AppConns.local(conns.consensus.app), genesis),
+                report=report))
+            wall = time.perf_counter() - t0
+    finally:
+        bstore.load_block_commit = load
+    client = report["client"]
+    errors = []
+    while not client.chunk_ch.err_q.empty():
+        e = client.chunk_ch.err_q.get_nowait()
+        errors.append({"peer": e.node_id, "err": e.err, "ban": e.ban})
+    state = report["state"]
+    top = state.last_block_height
+    return {
+        "held": held,
+        "wall_s": wall,
+        "sync_s": report["wall_s"],
+        "headers_per_s": held / wall,
+        "height": top,
+        "app_hash": state.app_hash.hex(),
+        "state": state.encode(),
+        "headers": [report["block_store"].load_block_meta(h).header.hash()
+                    for h in range(top - held + 1, top + 1)],
+        "stats": dict(client.bootd.stats),
+        "donor_stats": {k: v for k, v in report["server"].bootd.stats.items()
+                        if k.startswith(("chunk", "cache", "store", "snapshots"))},
+        "routes": routes,
+        "windows": [s["attrs"] for s in trace.RECORDER.dump(subsystem="boot")
+                    if s["name"] == "backfill_verify"],
+        "errors": errors,
+    }
+
+
+def build_bls_backfill(n_vals: int, n_heights: int) -> dict:
+    """A light chain of `n_heights` heights of `n_vals` bls12381 validators
+    (tests/test_boot_fleet.py's bls_blocks shape), each commit folded into
+    its aggregate; the per-signature commits are kept too."""
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.light.types import LightBlock, SignedHeader
+    from tendermint_tpu_torch.types.block import aggregate_commit
+
+    t0 = time.perf_counter()
+    vals, keys = tt.make_validator_set(n_vals, key_types=("bls12381",))
+    chain = tt.make_light_chain(n_heights, vals, keys, SS_CHAIN_ID)
+    folded = [LightBlock(SignedHeader(lb.header, aggregate_commit(lb.signed_header.commit, vals)),
+                         lb.validators) for lb in chain]
+    return {"vals": vals, "keys": keys, "per_sig": chain, "blocks": folded,
+            "build_s": time.perf_counter() - t0}
+
+
+def drive_statesync(dev) -> dict:
+    """Phase 15: bench.py's bench_statesync(64, 21) on the port — snapshot
+    restore and verified backfill over the statesync reactors on the card,
+    against the same scenario on the host in turns (floor, card, card,
+    floor); a tampered backfill window; then the BLS-committee backfill
+    through verify_backfill_batch (K7a and K7b, one pairing per height)
+    and a tampered aggregate."""
+    import asyncio
+    from dataclasses import replace
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto import bls
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.light.types import LightBlock, SignedHeader
+    from tendermint_tpu_torch.statesync import fleet
+    from tendermint_tpu_torch.types.validation import InvalidCommitError
+
+    trace.configure(enabled=True)  # the backfill windows and the BLS host split come from spans
+    t0 = time.perf_counter()
+    source = asyncio.run(tt.build_statesync_source(N_SS_BLOCKS, N_SS_VALS, device="cpu"))
+    build_s = time.perf_counter() - t0
+    print(f"statesync: built the {N_SS_BLOCKS}-block donor chain of {N_SS_VALS} validators "
+          f"in {build_s:.1f} s")
+
+    # the restore in turns: the host floor (device="cpu") and the card
+    turns = []
+    for label, d in (("floor", "cpu"), ("card", dev), ("card", dev), ("floor", "cpu")):
+        _launch_counts(reset=True)
+        run = _restore(d, source)
+        run["launches"] = _launch_counts()
+        run["run"] = label
+        turns.append(run)
+    card = turns[1]
+    for run in turns:
+        if (run["held"], run["state"], run["headers"]) != (card["held"], card["state"],
+                                                           card["headers"]):
+            raise AssertionError(f"statesync: the {run['run']} run restored another chain")
+        if run["height"] != SS_SNAPSHOT_HEIGHT or run["held"] != SS_SNAPSHOT_HEIGHT \
+                or run["stats"]["backfill_heights"] != SS_SNAPSHOT_HEIGHT - 1:
+            raise AssertionError(f"statesync: held {run['held']}, stats {run['stats']}")
+    for run in turns:
+        del run["state"], run["headers"]
+    card_s = sorted(r["wall_s"] for r in turns if r["run"] == "card")
+    floor_s = sorted(r["wall_s"] for r in turns if r["run"] == "floor")
+
+    # a tampered backfill window: the joiner must punish the donor and stop
+    _launch_counts(reset=True)
+    tampered = _restore(dev, source, tamper_height=SS_TAMPER_HEIGHT)
+    tampered["launches"] = _launch_counts()
+    del tampered["state"], tampered["headers"]
+    if tampered["held"] != 1 or tampered["stats"]["backfill_heights"] != 0 \
+            or tampered["stats"]["poisoned_rejects"] != 1 \
+            or [(e["peer"], e["ban"]) for e in tampered["errors"]] != [("server", True)] \
+            or "forged backfill commit" not in tampered["errors"][0]["err"]:
+        raise AssertionError(f"tampered backfill window: {tampered}")
+
+    # the BLS-committee backfill: one aggregate pairing per height
+    bb = build_bls_backfill(N_SS_VALS, N_SS_BLS_HEIGHTS)
+    print(f"statesync: built {N_SS_BLS_HEIGHTS} aggregate heights of {N_SS_VALS} bls12381 "
+          f"validators in {bb['build_s']:.1f} s")
+    blocks = bb["blocks"]
+    BP.warmup(device=dev)
+    audit = PairingAudit()
+    bootd = fleet.BootD(None)
+    _launch_counts(reset=True)
+    with audit.recording(SS_BLS):
+        bls_pass = _bls_pass(dev, lambda: asyncio.run(
+            fleet.verify_backfill_batch(SS_CHAIN_ID, blocks, bootd=bootd, device=dev)))
+    bls_launches = _launch_counts()
+    _require_all_launched(SS_BLS, bls_launches, names=(BP.MILLER.name, BP.FINAL_EXP.name))
+    want_shape = (BP.bucket_items(1), BP.bucket_pairs(N_SS_VALS + 1))
+    if bootd.stats["backfill_agg_heights"] != N_SS_BLS_HEIGHTS \
+            or bls_pass["calls"] != N_SS_VALS * N_SS_BLS_HEIGHTS \
+            or any(bls_launches[k] != N_SS_BLS_HEIGHTS for k in (BP.MILLER.name, BP.FINAL_EXP.name)) \
+            or audit.shapes(SS_BLS) != [(k, want_shape) for k in sorted((BP.MILLER.name,
+                                                                         BP.FINAL_EXP.name))]:
+        raise AssertionError(f"bls backfill: stats {bootd.stats}, launches {bls_launches}, "
+                             f"shapes {audit.shapes(SS_BLS)}")
+
+    # the tampered aggregate: one validator signs other bytes at one height
+    lb = bb["per_sig"][SS_BLS_TAMPER_INDEX]
+    sigs = [cs.signature for cs in lb.signed_header.commit.signatures]
+    sigs[AB_TAMPER_VAL] = bb["keys"][bb["vals"].validators[AB_TAMPER_VAL].address].sign(
+        b"not the vote")
+    agg = blocks[SS_BLS_TAMPER_INDEX].signed_header.commit
+    bad = list(blocks)
+    bad[SS_BLS_TAMPER_INDEX] = LightBlock(
+        SignedHeader(lb.header, replace(agg, agg_sig=bls.aggregate_signatures(sigs))), lb.validators)
+    bad_bootd = fleet.BootD(None)
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with audit.recording(SS_BLS_TAMPERED):
+        try:
+            asyncio.run(fleet.verify_backfill_batch(SS_CHAIN_ID, bad, bootd=bad_bootd, device=dev))
+        except InvalidCommitError as e:
+            err = e
+        else:
+            raise AssertionError("a tampered aggregate backfilled")
+    tampered_bls_s = time.perf_counter() - t0
+    tampered_bls_launches = _launch_counts()
+    named = blocks[err.failed_index].height
+    if named != blocks[SS_BLS_TAMPER_INDEX].height or \
+            str(err) != "aggregate signature verification failed" or \
+            any(v for k, v in bad_bootd.stats.items() if k.startswith("backfill")):
+        raise AssertionError(f"tampered aggregate: {err!r} at index {err.failed_index}, "
+                             f"stats {bad_bootd.stats}")
+    held = _hold_pairing_shapes(dev, audit)
+    return {
+        "entry": "testing.statesync_restore_scenario (bench.py bench_statesync(64, 21)); "
+                 "statesync.fleet.verify_backfill_batch over aggregate commits",
+        "device": dev.type,
+        "blocks": N_SS_BLOCKS,
+        "validators": N_SS_VALS,
+        "build_s": build_s,
+        "restore": {"turns": turns, "floor_over_card": (floor_s[0] + floor_s[1]) / (card_s[0] + card_s[1])},
+        "tampered": {"height": SS_TAMPER_HEIGHT, **tampered},
+        "bls_backfill": {
+            "heights": N_SS_BLS_HEIGHTS, "validators": N_SS_VALS, "build_s": bb["build_s"],
+            "bucket": list(want_shape), "stats": dict(bootd.stats), "launches": bls_launches,
+            "wall_s": bls_pass["wall_s"], "wall_per_height_s": bls_pass["wall_s"] / N_SS_BLS_HEIGHTS,
+            "pass": bls_pass,
+            "tampered": {"height": named, "failed_index": err.failed_index, "raised": str(err),
+                         "wall_s": tampered_bls_s, "launches": tampered_bls_launches},
+            "kernel_checks": held,
+        },
+    }
+
+
+MERKLE_PATH = "merkle[device route, 64 / 1,024 / 16,384 leaves]"
+
+
+def _merkle_scalar(items: list[bytes]) -> bytes:
+    """The recursive RFC 6962 builder (the reference's
+    hash_from_byte_slices_scalar; bench_merkle's baseline), on hashlib."""
+    import hashlib
+
+    n = len(items)
+    if n == 0:
+        return hashlib.sha256(b"").digest()
+    if n == 1:
+        return hashlib.sha256(b"\x00" + items[0]).digest()
+    k = 1 << ((n - 1).bit_length() - 1)
+    return hashlib.sha256(b"\x01" + _merkle_scalar(items[:k]) + _merkle_scalar(items[k:])).digest()
+
+
+def _paired_best(fa, fb, reps=5):
+    """bench_merkle's interleaved best-of-reps: (best a, best b) seconds."""
+    best_a = best_b = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fa()
+        t1 = time.perf_counter()
+        fb()
+        t2 = time.perf_counter()
+        best_a, best_b = min(best_a, t1 - t0), min(best_b, t2 - t1)
+    return best_a, best_b
+
+
+def _sha_bucket(dev, lengths, b, t, seed):
+    """A (b, t) bucket of messages of `lengths` (cycled), seeded."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import sha256 as S
+
+    rng = np.random.default_rng(seed)
+    msgs = [rng.integers(0, 256, lengths[i % len(lengths)], dtype=np.uint8).tobytes()
+            for i in range(b)]
+    packed, nblk = S.prepare_hash_batch(msgs, pad_to=b, block_pad=t)
+    return msgs, torch.from_numpy(packed.view(np.int32)).to(dev), \
+        torch.from_numpy(nblk.view(np.int32)).to(dev)
+
+
+def _device_split(dev, msgs) -> dict:
+    """The device route's parts for one `sha256_device` call on `msgs`,
+    summed over its chunks: `prepare_hash_batch` and the copies on the
+    host's clock (synchronised), the kernel by CUDA events and by the
+    host's clock around its launch and synchronisation."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import sha256 as S
+
+    t_bucket = S.block_bucket(max(S._padded_blocks(len(m)) for m in msgs))
+    out = {"prepare_s": 0.0, "h2d_s": 0.0, "kernel_ms": 0.0, "kernel_wall_s": 0.0, "d2h_s": 0.0,
+           "chunks": 0}
+    for lo in range(0, len(msgs), S._MAX_BUCKET):
+        chunk = msgs[lo : lo + S._MAX_BUCKET]
+        t0 = time.perf_counter()
+        packed, nblk = S.prepare_hash_batch(chunk, pad_to=S.batch_bucket(len(chunk)), block_pad=t_bucket)
+        t1 = time.perf_counter()
+        words = torch.from_numpy(packed.view(np.int32)).to(dev)
+        counts = torch.from_numpy(nblk.view(np.int32)).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = S.sha256_batch(words, counts)
+        end.record()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        state.cpu()
+        t4 = time.perf_counter()
+        out["prepare_s"] += t1 - t0
+        out["h2d_s"] += t2 - t1
+        out["kernel_ms"] += start.elapsed_time(end)
+        out["kernel_wall_s"] += t3 - t2
+        out["d2h_s"] += t4 - t3
+        out["chunks"] += 1
+    out["shape"] = [S.batch_bucket(min(len(msgs), S._MAX_BUCKET)), t_bucket]
+    return out
+
+
+def drive_sha256(dev) -> tuple[dict, list]:
+    """Phase 16: B8 torch.equal to its plain version and equal to hashlib
+    at every bucket shape; bench_merkle's leaves half through the HashHub's
+    device route (launches counted); the route's split; the B8 rows."""
+    import hashlib
+
+    import numpy as np
+
+    from tendermint_tpu_torch.crypto import hash_hub, merkle
+    from tendermint_tpu_torch.crypto.cuda import sha256 as S
+
+    edges = (0, 1, 55, 56, 63, 64, 65, 119, 120, 250, 503)
+    held = []
+    for t in (1, 2, 4, 8):
+        lens = [n for n in edges if S._padded_blocks(n) <= t]
+        for b in (16, 256, 4096):
+            msgs, words, counts = _sha_bucket(dev, lens, b, t, seed=t * b)
+            err = _hold(S.SHA256, f"({b}, {t})", lambda: S.sha256_batch(words, counts),
+                        lambda: S._sha256_plain(words, counts))
+            digests = S.sha256_batch(words, counts).cpu().numpy().view(np.uint32)
+            digests = digests.astype(">u4").tobytes()
+            if any(digests[32 * i : 32 * i + 32] != hashlib.sha256(m).digest()
+                   for i, m in enumerate(msgs)):
+                raise AssertionError(f"sha256_batch ({b}, {t}): digests differ from hashlib")
+            held.append({"shape": [b, t], "lengths": lens, "max_abs_err": err, "hashlib": True})
+    try:
+        S.sha256_device([b"x" * 504], device=dev)
+    except ValueError as e:
+        over_limit = str(e)
+    else:
+        raise AssertionError("a 504-byte message hashed on the device")
+
+    # bench_merkle's leaves half: scalar recursive, batched on the host,
+    # batched through the device route from one message (bench.py's
+    # MIN_DEVICE_BATCH = 1 for its device half)
+    saved = hash_hub.MIN_DEVICE_BATCH
+    leaves_rows = {}
+    _launch_counts(reset=True)
+    try:
+        for n in MERKLE_LEAVES:
+            leaves = [bytes([i % 256, (i >> 8) % 256]) * 125 for i in range(n)]
+            root = _merkle_scalar(leaves)
+            hash_hub.use_device(None)
+            hash_hub.MIN_DEVICE_BATCH = saved
+            if merkle.hash_from_byte_slices(leaves) != root:
+                raise AssertionError(f"merkle {n}: the host route's root differs")
+            ts, tb = _paired_best(lambda: _merkle_scalar(leaves),
+                                  lambda: merkle.hash_from_byte_slices(leaves))
+            hash_hub.use_device(dev)
+            hash_hub.MIN_DEVICE_BATCH = 1
+            hash_hub.reset_stats()
+            before = S.SHA256.launches
+            if merkle.hash_from_byte_slices(leaves) != root:
+                raise AssertionError(f"merkle {n}: the device route's root differs")
+            _, td = _paired_best(lambda: None, lambda: merkle.hash_from_byte_slices(leaves))
+            stats = hash_hub.stats_snapshot()
+            launched = S.SHA256.launches - before
+            if stats["device_batches"] == 0 or launched == 0:
+                raise AssertionError(f"merkle {n}: device route not taken: {stats}, {launched}")
+            leaves_rows[str(n)] = {
+                "scalar_leaves_per_s": n / ts, "batched_cpu_leaves_per_s": n / tb,
+                "device_leaves_per_s": n / td, "device_over_host": tb / td,
+                "device_batches": stats["device_batches"], "device_messages": stats["device_messages"],
+                "batches": stats["batches"], "launches": launched,
+            }
+            print(f"merkle {n:>6} leaves: scalar {n / ts:,.0f}/s, host batched {n / tb:,.0f}/s, "
+                  f"device {n / td:,.0f}/s ({launched} launches)")
+    finally:
+        hash_hub.use_device(None)
+        hash_hub.MIN_DEVICE_BATCH = saved
+    launches = _launch_counts()
+    _require_all_launched(MERKLE_PATH, launches, names=(S.SHA256.name,))
+
+    leaves = [bytes([i % 256, (i >> 8) % 256]) * 125 for i in range(16384)]
+    split = {"leaf_level_16384": _device_split(dev, [b"\x00" + x for x in leaves]),
+             "inner_level_8192": _device_split(dev, [b"\x01" + bytes(64)] * 8192)}
+
+    # the B8 rows: the 250-byte leaves (251 with the prefix: 5 real
+    # blocks of the 8-block bucket) and the 65-byte inner nodes (2 of 2)
+    ops_per_s = _int32_ops_per_s()
+    rows = []
+    for b, t, length, reps in ((4096, 8, 251, 200), (4096, 2, 65, 200)):
+        _msgs, words, counts = _sha_bucket(dev, [length], b, t, seed=length)
+        real_blocks = int(counts.sum())
+        row = _kernel_row(S.SHA256, b, lambda w=words, c=counts: S.sha256_batch(w, c),
+                          lambda w=words, c=counts: S._sha256_plain(w, c),
+                          b * t * 64 + b * 4 + b * 32, real_blocks * SHA256_BLOCK_OPS, reps,
+                          ops_per_s=ops_per_s)
+        row["shape"] = [b, t]
+        row["message_bytes"] = length
+        row["real_blocks"] = real_blocks
+        row["bound_rate"] = (f"int32: {H100_SMS} SMs x {INT32_LANES_PER_SM} lanes x clocks.max.sm "
+                             f"= {ops_per_s:.4g} op/s")
+        row["launches"] = launches[S.SHA256.name]
+        row["path"] = MERKLE_PATH
+        rows.append(row)
+    return {"held": held, "over_limit": over_limit, "leaves": leaves_rows, "launches": launches,
+            "device_split": split}, rows
+
+
 def main() -> int:
     import torch
 
@@ -2301,6 +2806,7 @@ def main() -> int:
     sys.path.insert(0, repo)
     from tendermint_tpu_torch.crypto.cuda import _build
     from tendermint_tpu_torch.crypto.cuda import bls_pairing  # noqa: F401  (registers K7a, K7b)
+    from tendermint_tpu_torch.crypto.cuda import sha256  # noqa: F401  (registers B8)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -2356,6 +2862,14 @@ def main() -> int:
     bls = drive_bls(dev)
     bls_rows = bls.pop("rows")
     print(json.dumps({"bls": bls}))
+    t0 = time.perf_counter()
+    ss = drive_statesync(dev)
+    ss["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"statesync": ss}))
+    t0 = time.perf_counter()
+    sha, sha_rows = drive_sha256(dev)
+    sha["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"sha256": sha}))
 
     by_path = {
         "verify_commit_range[ed25519]": run["launches"],
@@ -2375,6 +2889,12 @@ def main() -> int:
         BLS_TAMPERED: bls["tampered"]["launches"],
         BLS_PERSIG: bls["per_signature"]["honest"]["launches"],
         BLS_PERSIG_TAMPERED: bls["per_signature"]["tampered"]["launches"],
+        # the first run on the card of the four restore turns
+        SS_MAIN: ss["restore"]["turns"][1]["launches"],
+        SS_TAMPERED: ss["tampered"]["launches"],
+        SS_BLS: ss["bls_backfill"]["launches"],
+        SS_BLS_TAMPERED: ss["bls_backfill"]["tampered"]["launches"],
+        MERKLE_PATH: sha["launches"],
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
@@ -2403,6 +2923,9 @@ def main() -> int:
             # profiled
             row["launches"] = by_path[row["path"]][row["name"]]
             row["main_path_device_ms"] = None
+        rows.append(row)
+    for row in sha_rows:
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
         rows.append(row)
 
     print(json.dumps({"slice": run["slice"]}))

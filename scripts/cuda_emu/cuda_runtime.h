@@ -51,6 +51,14 @@ inline int __ffs(int x) { return __builtin_ffs(x); }
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) int4 { int x, y, z, w; };
 struct alignas(8) int2 { int x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+using std::min;
+// the funnel shift right of the 64-bit hi:lo by n mod 32, low word kept
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, int n) {
+  const unsigned s = (unsigned)n & 31u;
+  return s ? (lo >> s) | (hi << (32 - s)) : lo;
+}
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline float __int_as_float(int v) { float f; std::memcpy(&f, &v, 4); return f; }

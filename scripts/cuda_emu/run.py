@@ -17,7 +17,10 @@ broadcast constant) and B2 on limbs in [0, 512) and [-511, 512), row 0
 at 511; K7a (bls_miller) and K7b (bls_final_exp) on pairing batches of
 real pairs at (2, 2) and (2, 4), the latter with pad pairs, and on p - 1
 in every input with zero lines and pad pairs; K7b alone also on lanes of
-p - 1, of one, and an item whose product is zero.
+p - 1, of one, and an item whose product is zero; B8 (sha256) at each
+block bucket on messages of 0 to 503 bytes across the padding edges,
+with pad rows, a count above the bucket and a negative count, against
+its plain version and hashlib.
 
 --eager runs each cp.async copy when it is issued instead of when its
 group is waited for. --tsan builds with ThreadSanitizer, which reports
@@ -40,7 +43,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parents[1]
 CSRC = ROOT / "tendermint_tpu_torch" / "crypto" / "cuda" / "csrc"
 OUT = ROOT / "build" / "cuda_emu"
-KERNELS = ("scan_blocks", "fe_mul", "fe_pow22523", "bls_miller", "bls_final_exp")
+KERNELS = ("scan_blocks", "fe_mul", "fe_pow22523", "bls_miller", "bls_final_exp", "sha256")
 
 
 def build(flags: list[str], suffix: str) -> None:
@@ -124,7 +127,43 @@ def check(suffix: str) -> bool:
             results.append(torch.equal(out, F._pow22523_plain(a)))
             ok &= all(results)
             print(f"fe_mul (a b, a a, a d), fe_pow22523, m = {m} in [{lo}, 512): {results}")
-    return ok & check_bls(libs)
+    return ok & check_bls(libs) & check_sha256(libs)
+
+
+def check_sha256(libs) -> bool:
+    """B8 against its plain version and hashlib: every block bucket, the
+    padding edges mixed in one batch, pad rows (count 0), one count above
+    the bucket and one below zero (the kernel clamps both, as the mask
+    does)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import sha256 as S
+
+    P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    launch = libs["sha256"].sha256_batch_launch
+    launch.argtypes = [P, P, P, I64, I32, I32, P]
+    edges = (0, 1, 55, 56, 63, 64, 65, 119, 120, 250, 503)
+    ok = True
+    for t in (1, 2, 4, 8):
+        lens = [n for n in edges if S._padded_blocks(n) <= t]
+        msgs = [bytes((7 * i + j) % 256 for j in range(n)) for i, n in enumerate(lens * 2)]
+        packed, nblk = S.prepare_hash_batch(msgs, pad_to=S.batch_bucket(len(msgs) + 3), block_pad=t)
+        words = torch.from_numpy(packed.view(np.int32))
+        counts = torch.from_numpy(nblk.view(np.int32)).clone()
+        counts[-2], counts[-1] = t + 3, -1
+        out = torch.empty((words.shape[0], 8), dtype=torch.int32)
+        launch(words.data_ptr(), counts.data_ptr(), out.data_ptr(), words.shape[0], t, 0, None)
+        equal = torch.equal(out, S._sha256_plain(words, counts))
+        digests = out[: len(msgs)].numpy().view(np.uint32).astype(">u4").tobytes()
+        same = all(digests[32 * i : 32 * i + 32] == hashlib.sha256(m).digest()
+                   for i, m in enumerate(msgs))
+        ok &= equal and same
+        print(f"sha256 T = {t}, {len(msgs)} messages of {lens} bytes, B = {words.shape[0]}: "
+              f"plain {equal}, hashlib {same}")
+    return ok
 
 
 def check_bls(libs) -> bool:

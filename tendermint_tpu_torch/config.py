@@ -1,5 +1,6 @@
-"""Node configuration — the port's copy of the one section of
-tendermint_tpu/config.py that it reads so far: `VerifyHubConfig`.
+"""Node configuration — the port's copy of the sections of
+tendermint_tpu/config.py that it reads so far: `VerifyHubConfig` and
+`BootDConfig`.
 """
 
 from __future__ import annotations
@@ -19,3 +20,26 @@ class VerifyHubConfig:
     max_batch: int = 512  # dispatch target (sigs queued)
     window_ms: float = 2.0  # micro-batch window ceiling (adaptive below it)
     cache_size: int = 8192  # verified-(pubkey,msg,sig) LRU entries
+
+
+@dataclass
+class BootDConfig:
+    """BootD — the snapshot-serving layer (statesync/fleet.py): bounded
+    concurrent chunk sessions and a shared per-snapshot chunk cache in
+    front of the app's snapshot store, plus the manifest loop that
+    commits and prunes served snapshots on a height interval. The
+    reference's TMTPU_BOOTD_* env overrides are not read: BootD takes its
+    knobs from this config alone."""
+
+    #: concurrent chunk-loading sessions before arrivals are rejected
+    #: with busy (BootDBusyError — shed is backpressure, not failure;
+    #: cache hits and coalesced same-chunk joins never shed)
+    max_sessions: int = 32
+    #: chunk bytes kept in the shared cache (entries, insertion-evicted)
+    chunk_cache: int = 256
+    #: manifest refresh cadence (seconds)
+    refresh_s: float = 2.0
+    #: serve only snapshots whose height is a multiple of this interval
+    snapshot_interval: int = 1
+    #: backfilled commits verified per funnel call (the backfill window)
+    backfill_batch: int = 64

@@ -1,5 +1,5 @@
 """HashHub — the process-wide SHA-256 chokepoint (the port's copy of
-tendermint_tpu/crypto/hash_hub.py, host path).
+tendermint_tpu/crypto/hash_hub.py).
 
 Every hot-path hash — part-set roots, tx Merkle roots, header and
 app-hash trees, validator-set hashes — goes through `sha256_many` /
@@ -11,10 +11,16 @@ app-hash trees, validator-set hashes — goes through `sha256_many` /
     deep call chains. Lanes are accounting, not priority queues: hashing
     is synchronous and microseconds-scale, so there is no scheduler
     thread, only per-lane batch and occupancy counters (`STATS`).
-  * **Host only.** One `sha256_many` call per Merkle tree level replaces
-    O(n) recursive Python frames. The reference's opt-in device route
-    (a jitted SHA-256 behind its shared breaker) has no counterpart yet;
-    it waits for the port's SHA-256 kernel, and comes without a breaker.
+  * **Routes.** One `sha256_many` call per Merkle tree level replaces
+    O(n) recursive Python frames. A batch goes to the host (a hashlib
+    loop) unless the device route is switched on with
+    `use_device(device)`: then a batch of at least `MIN_DEVICE_BATCH`
+    messages, each at most 503 bytes, hashes through the SHA-256 kernel
+    B8 (crypto/cuda/sha256.py) on that device — the reference's opt-in
+    `TMTPU_HASH_TPU=1`, as a runtime switch like `merkle.use_hashhub`.
+    Narrower batches and longer messages hash on the host, as in the
+    reference; `STATS` counts both routes. There is no breaker and no
+    host re-hash: a device error raises out of `sha256_many`.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import hashlib
 import threading
 import time
 
+from ..device import resolve
 from ..libs import trace
 
 _sha256 = hashlib.sha256
@@ -37,6 +44,7 @@ __all__ = [
     "current_lane",
     "stats_snapshot",
     "reset_stats",
+    "use_device",
 ]
 
 LANE_BUILD = "build"
@@ -44,10 +52,11 @@ LANE_VERIFY = "verify"
 LANE_LIGHT = "light"
 _LANES = (LANE_BUILD, LANE_VERIFY, LANE_LIGHT)
 
-#: batches at least this wide emit a `hash.batch` span when tracing is on
-#: (the reference's device-route threshold; a span per narrow tree level
-#: would cost more than the hashing and flood the ring)
-MIN_TRACED_BATCH = 256
+#: the device route engages only for batches at least this wide — below
+#: it even a warm kernel launch loses to the hashlib loop. Wide batches
+#: also emit a `hash.batch` span when tracing is on (a span per narrow
+#: tree level would cost more than the hashing and flood the ring)
+MIN_DEVICE_BATCH = 256
 
 #: per-lane and global counters; plain dict with unlocked += on the hot
 #: path (a rare lost increment in a stats counter is acceptable, a lock
@@ -56,6 +65,8 @@ STATS = {
     "batches": 0,
     "messages": 0,
     "singles": 0,
+    "device_batches": 0,
+    "device_messages": 0,
     "max_batch": 0,
     "lane_batches": {lane: 0 for lane in _LANES},
     "lane_messages": {lane: 0 for lane in _LANES},
@@ -96,10 +107,42 @@ class lane_ctx:
         _tls.lane = self._prev
 
 
+#: the device the route hashes on; None = every batch on the host (the
+#: reference's default, TMTPU_HASH_TPU unset)
+_device = None
+
+
+def use_device(device) -> None:
+    """Switch the device route on (`device`: "cuda", "cpu", a
+    torch.device) or off (None). "cpu" runs the kernel's plain version,
+    for tests. Resolved here: "cuda" without a card raises."""
+    global _device
+    _device = None if device is None else resolve(device)
+
+
+def _device_many(msgs: list[bytes], dev) -> list[bytes] | None:
+    """The batch through B8 on `dev`, or None when a message is longer
+    than the kernel takes (long messages, such as 64 KiB block parts,
+    are host work). A device error raises."""
+    from .cuda import sha256 as dev_sha
+
+    limit = dev_sha.max_device_bytes()
+    if any(len(m) > limit for m in msgs):
+        return None
+    out = dev_sha.sha256_device(msgs, device=dev)
+    STATS["device_batches"] += 1
+    STATS["device_messages"] += len(msgs)
+    return out
+
+
 def sha256_many(msgs: list[bytes], *, lane: str | None = None) -> list[bytes]:
     """Hash a batch of independent messages: one call per Merkle tree
-    level. Wide batches (≥ MIN_TRACED_BATCH) emit a `hash.batch` span
-    (route "cpu") when tracing is on."""
+    level. With the device route on, a batch of at least
+    MIN_DEVICE_BATCH short messages hashes on the device; every other
+    batch is one hashlib loop. Bytes are identical on every route. Wide
+    batches (≥ MIN_DEVICE_BATCH) emit a `hash.batch` span with their
+    route when tracing is on: "cuda" (the kernel), "plain" (its plain
+    version, the route switched on with "cpu") or "cpu" (hashlib)."""
     n = len(msgs)
     if not n:
         return []
@@ -113,12 +156,17 @@ def sha256_many(msgs: list[bytes], *, lane: str | None = None) -> list[bytes]:
     st["lane_batches"][lane] += 1
     st["lane_messages"][lane] += n
     s = _sha256
-    if n >= MIN_TRACED_BATCH and trace.is_enabled():
+    if n >= MIN_DEVICE_BATCH:
         t0 = time.monotonic()
-        out = [s(m).digest() for m in msgs]
-        trace.emit(
-            "hash", "batch", duration_s=time.monotonic() - t0, n=n, lane=lane, route="cpu"
-        )
+        dev = _device
+        out = _device_many(msgs, dev) if dev is not None else None
+        route = "cpu" if out is None else ("cuda" if dev.type == "cuda" else "plain")
+        if out is None:
+            out = [s(m).digest() for m in msgs]
+        if trace.is_enabled():
+            trace.emit(
+                "hash", "batch", duration_s=time.monotonic() - t0, n=n, lane=lane, route=route
+            )
         return out
     return [s(m).digest() for m in msgs]
 

@@ -13,7 +13,10 @@ subsystem, name, start, duration, attrs)``. The hub records two kinds:
 
 The BLS pairing path (crypto/cuda/bls_pairing.py) emits its host time
 by part, per pairing batch: ``bls.hash_to_curve``, ``bls.prepare_lines``,
-``bls.pack`` and ``bls.h2d``.
+``bls.pack`` and ``bls.h2d``. State sync (statesync/) times its steps
+with context-manager spans (`span`): ``boot.serve_chunk``,
+``boot.backfill_verify`` and ``boot.sync``; the HashHub emits one
+``hash.batch`` per wide batch, with its route.
 
 Spans live in the injectable Clock's monotonic domain
 (`libs/clock.Clock.monotonic`) and never read the wall clock. Recording
@@ -23,9 +26,8 @@ by default, as the reference's is; ``TMTPU_TRACE=0`` (or
 ``configure(enabled=False)``) turns it off, and then every call returns
 before touching the ring. ``TMTPU_TRACE_RING`` sizes the ring.
 
-Not ported yet: context-manager spans, `finish`, the ring's counters and
-the automatic dumps on a wedge or a breaker trip (the port has no
-breaker).
+Not ported yet: `finish`, the ring's counters and the automatic dumps
+on a wedge or a breaker trip (the port has no breaker).
 """
 
 from __future__ import annotations
@@ -55,6 +57,54 @@ class TraceCtx:
         self.trace_id = trace_id
         self.t0 = t0
         self.clock = clock
+
+
+class Span:
+    """One in-progress span (context-manager use only). `set(k=v)`
+    attaches attrs mid-flight; an exception leaves its repr as `error`."""
+
+    __slots__ = ("_rec", "subsystem", "name", "_clock", "_t0", "attrs")
+
+    def __init__(self, rec, subsystem, name, clock, attrs):
+        self._rec = rec
+        self.subsystem = subsystem
+        self.name = name
+        self._clock = clock
+        self._t0 = 0.0
+        self.attrs = attrs
+
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> "Span":
+        self._t0 = self._clock.monotonic()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            self.attrs["error"] = repr(exc)
+        self._rec._append(
+            0, self.subsystem, self.name, self._t0,
+            self._clock.monotonic() - self._t0, self.attrs or None,
+        )
+
+
+class _NopSpan:
+    """Shared do-nothing span for disabled tracing."""
+
+    __slots__ = ()
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self) -> "_NopSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+
+NOP_SPAN = _NopSpan()
 
 
 class FlightRecorder:
@@ -95,6 +145,13 @@ class FlightRecorder:
         self._append(
             ctx.trace_id, subsystem, name, start_s, end_s - start_s, attrs or None
         )
+
+    def span(self, subsystem: str, name: str, *, clock: Clock | None = None, **attrs):
+        """Context-manager span for a code block, outside any trace,
+        timed on `clock` (default SYSTEM)."""
+        if not self.enabled:
+            return NOP_SPAN
+        return Span(self, subsystem, name, clock or SYSTEM, attrs)
 
     def emit(
         self,
@@ -182,6 +239,10 @@ def start(clock: Clock | None = None) -> TraceCtx | None:
 
 def record(ctx, subsystem, name, start_s, end_s, **attrs) -> None:
     RECORDER.record(ctx, subsystem, name, start_s, end_s, **attrs)
+
+
+def span(subsystem, name, *, clock=None, **attrs):
+    return RECORDER.span(subsystem, name, clock=clock, **attrs)
 
 
 def emit(subsystem, name, *, duration_s=0.0, clock=None, **attrs) -> None:

@@ -1,7 +1,8 @@
 """Test/bench fixtures: deterministic validator sets, signed commits,
-light chains, kvstore chains and pairing buckets (the subset of tendermint_tpu/testing.py
-the commit, block-sync and light-client paths need, and the chain build
-of bench.py's block-sync bench). Keys derive from the same seeds as the reference's, so both
+light chains, kvstore chains, pairing buckets and the state-sync restore
+scenario (the subset of tendermint_tpu/testing.py the commit, block-sync,
+light-client and state-sync paths need, and the chain builds of bench.py's
+block-sync and state-sync benches). Keys derive from the same seeds as the reference's, so both
 packages build the same validators and addresses, and the same
 signatures wherever the scheme is deterministic (ed25519, sr25519;
 secp256k1 only on the pure-Python path)."""
@@ -255,3 +256,161 @@ async def build_kvstore_chain(
         if on_height is not None:
             on_height(h, block, parts, commit, state)
     return bstore, sstore, conns, state
+
+
+def fixed_tx_mempool(txs_by_height: dict[int, list[bytes]]):
+    """A mempool that hands each height's proposal the txs
+    `txs_by_height` lists for it (nothing else), as a priority mempool
+    fed those txs just before each proposal would."""
+    from .mempool import NopMempool
+
+    class FixedTxMempool(NopMempool):
+        def __init__(self):
+            self.next_height = 1
+
+        def reap_max_bytes_max_gas(self, max_bytes, max_gas):
+            return list(txs_by_height.get(self.next_height, ()))
+
+        async def update(self, height, txs, results, *, recheck=True):
+            self.next_height = height + 1
+
+    return FixedTxMempool()
+
+
+async def build_statesync_source(
+    n_blocks: int, n_vals: int, chain_id: str = "ss-bench", *, device=DEFAULT_DEVICE
+):
+    """The donor chain of the state-sync scenarios (the reference's
+    `testing.build_kvstore_chain(n_blocks, n_vals)`): `n_vals` validators
+    of power 10 from `det_priv_keys`, `n_blocks` kvstore blocks with the
+    tx `k<h>=v<h>` at every height h = 1 mod 3, the app holding its
+    periodic snapshots (every 10 heights). Returns (block_store,
+    state_store, app_conns, genesis)."""
+    keys = det_priv_keys(n_vals)
+    genesis = make_genesis(keys, chain_id)
+    txs = {h: [b"k%d=v%d" % (h, h)] for h in range(1, n_blocks + 1) if h % 3 == 1}
+    bstore, sstore, conns, _state = await build_kvstore_chain(
+        genesis, keys, n_blocks, mempool=fixed_tx_mempool(txs), device=device
+    )
+    return bstore, sstore, conns, genesis
+
+
+async def statesync_restore_scenario(
+    n_blocks: int,
+    n_vals: int,
+    *,
+    backfill_blocks: int | None = None,
+    device=DEFAULT_DEVICE,
+    source=None,
+    report: dict | None = None,
+) -> int:
+    """BASELINE config 5 shape: snapshot restore + verified backfill over
+    the real statesync reactor protocol, two reactors bridged in-process
+    (the reference's `testing.statesync_restore_scenario`). The joining
+    reactor verifies on `device`. Returns the number of headers the
+    restored node holds afterwards.
+
+    `source` is a donor chain from `build_statesync_source` (built here,
+    on `device`, when None). `report`, when given, receives the restored
+    "state", the joiner's "client" reactor, "block_store" and
+    "state_store", the "server" reactor and the sync's "wall_s"."""
+    import asyncio
+    import time
+
+    from .abci.kvstore import KVStoreApp
+    from .p2p.peermanager import PeerStatus, PeerUpdate
+    from .p2p.router import Channel
+    from .p2p.types import Envelope
+    from .proxy import AppConns
+    from .state.store import StateStore
+    from .statesync import (
+        CHUNK_CHANNEL,
+        LIGHT_BLOCK_CHANNEL,
+        PARAMS_CHANNEL,
+        SNAPSHOT_CHANNEL,
+    )
+    from .statesync import messages as ssm
+    from .statesync.reactor import StateSyncReactor, SyncConfig
+    from .store.blockstore import BlockStore
+    from .store.db import MemDB
+
+    if source is None:
+        source = await build_statesync_source(n_blocks, n_vals, device=device)
+    src_bstore, src_sstore, src_conns, genesis = source
+
+    def channels() -> dict[int, Channel]:
+        return {
+            cid: Channel(cid, name, 5, ssm.encode_message, ssm.decode_message)
+            for cid, name in (
+                (SNAPSHOT_CHANNEL, "snapshot"),
+                (CHUNK_CHANNEL, "chunk"),
+                (LIGHT_BLOCK_CHANNEL, "lightblock"),
+                (PARAMS_CHANNEL, "params"),
+            )
+        }
+
+    src_ch, dst_ch = channels(), channels()
+
+    server_q: asyncio.Queue = asyncio.Queue()
+    client_q: asyncio.Queue = asyncio.Queue()
+    server = StateSyncReactor(
+        genesis.chain_id, src_conns, src_sstore, src_bstore,
+        src_ch[SNAPSHOT_CHANNEL], src_ch[CHUNK_CHANNEL],
+        src_ch[LIGHT_BLOCK_CHANNEL], src_ch[PARAMS_CHANNEL], server_q,
+        device=device,
+    )
+    dst_app = AppConns.local(KVStoreApp(MemDB()))
+    dst_bstore = BlockStore(MemDB())
+    dst_sstore = StateStore(MemDB())
+    client = StateSyncReactor(
+        genesis.chain_id, dst_app, dst_sstore, dst_bstore,
+        dst_ch[SNAPSHOT_CHANNEL], dst_ch[CHUNK_CHANNEL],
+        dst_ch[LIGHT_BLOCK_CHANNEL], dst_ch[PARAMS_CHANNEL], client_q,
+        device=device,
+    )
+
+    async def pump(src: Channel, dst: Channel, from_name: str) -> None:
+        while True:
+            env = await src.out_q.get()
+            await dst.in_q.put(Envelope(env.channel_id, env.message, from_=from_name))
+
+    pumps = [
+        asyncio.get_running_loop().create_task(pump(a, b, name))
+        for cid in src_ch
+        for a, b, name in (
+            (dst_ch[cid], src_ch[cid], "client"),
+            (src_ch[cid], dst_ch[cid], "server"),
+        )
+    ]
+    await server.start()
+    await client.start()
+    await client_q.put(PeerUpdate("server", PeerStatus.UP))
+    try:
+        meta1 = src_bstore.load_block_meta(1)
+        cfg = SyncConfig(
+            trust_height=1,
+            trust_hash=meta1.header.hash(),
+            trust_period_ns=10 * 365 * 24 * 3600 * 10**9,
+            backfill_blocks=backfill_blocks,
+        )
+        t0 = time.perf_counter()
+        state = await asyncio.wait_for(client.sync(cfg), timeout=300)
+        wall = time.perf_counter() - t0
+        assert state.last_block_height >= n_blocks - 12, state.last_block_height
+        held = 0
+        h = state.last_block_height
+        while h >= 1 and dst_bstore.load_block_meta(h) is not None:
+            held += 1
+            h -= 1
+        if report is not None:
+            report.update(state=state, client=client, server=server, block_store=dst_bstore,
+                          state_store=dst_sstore, wall_s=wall)
+        return held
+    finally:
+        for t in pumps:
+            t.cancel()
+        await asyncio.gather(*pumps, return_exceptions=True)
+        await client.stop()
+        await server.stop()
+        await dst_app.stop()
+        await src_conns.stop()

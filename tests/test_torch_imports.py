@@ -61,7 +61,7 @@ def test_whole_port_imports_with_jax_blocked():
         "    importlib.import_module(m)\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "from tendermint_tpu_torch.crypto.cuda import _build\n"
-        "assert sorted(_build.KERNELS) == ['bls_final_exp', 'bls_miller', 'fe_mul', 'fe_pow22523', 'scan_blocks']\n"
+        "assert sorted(_build.KERNELS) == ['bls_final_exp', 'bls_miller', 'fe_mul', 'fe_pow22523', 'scan_blocks', 'sha256_batch']\n"
         "assert not _build._libs and all(k.launches == 0 for k in _build.KERNELS.values())\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -408,6 +408,77 @@ def test_light_entry_points_raise_without_cuda_unless_cpu_requested(name):
         pytest.skip("a CUDA card is present: the default device is usable here")
     points = _light_entry_points()
     assert sorted(points) == LIGHT_ENTRY_POINTS
+    fn = points[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(device="cuda")
+    fn(device="cpu")  # the host, when asked for, works
+
+
+STATESYNC_MODULES = [
+    "tendermint_tpu_torch.crypto.cuda.sha256",
+    "tendermint_tpu_torch.statesync",
+    "tendermint_tpu_torch.statesync.fleet",
+    "tendermint_tpu_torch.statesync.messages",
+    "tendermint_tpu_torch.statesync.reactor",
+]
+
+
+def test_scan_and_blocked_import_cover_the_statesync_modules():
+    """The AST scan and the jax-blocked import walk every module of the
+    package; state sync's and the SHA-256 kernel's are among them."""
+    assert set(STATESYNC_MODULES) <= set(_port_modules())
+
+
+def _statesync_entry_points():
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApp
+    from tendermint_tpu_torch.crypto import hash_hub
+    from tendermint_tpu_torch.crypto.cuda import sha256
+    from tendermint_tpu_torch.p2p.router import Channel
+    from tendermint_tpu_torch.proxy import AppConns
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.statesync import fleet
+    from tendermint_tpu_torch.statesync import messages as ssm
+    from tendermint_tpu_torch.statesync.reactor import StateSyncReactor
+    from tendermint_tpu_torch.store.blockstore import BlockStore
+    from tendermint_tpu_torch.store.db import MemDB
+
+    vals, keys = tt.make_validator_set(2)
+    chain = tt.make_light_chain(2, vals, keys, "c")
+
+    def reactor(**kw):
+        chs = [Channel(cid, "c", 5, ssm.encode_message, ssm.decode_message)
+               for cid in (0x60, 0x61, 0x62, 0x63)]
+        return StateSyncReactor("c", AppConns.local(KVStoreApp()), StateStore(MemDB()),
+                                BlockStore(MemDB()), *chs, asyncio.Queue(), **kw)
+
+    def use_device(device="cuda"):
+        try:
+            hash_hub.use_device(device)
+        finally:
+            hash_hub.use_device(None)
+
+    return {
+        "StateSyncReactor": reactor,
+        "sha256_device": lambda **kw: sha256.sha256_device([b"abc"], **kw),
+        "use_device": use_device,
+        "verify_backfill_batch": lambda **kw: asyncio.run(
+            fleet.verify_backfill_batch("c", chain, **kw)
+        ),
+    }
+
+
+STATESYNC_ENTRY_POINTS = ["StateSyncReactor", "sha256_device", "use_device", "verify_backfill_batch"]
+
+
+@pytest.mark.parametrize("name", STATESYNC_ENTRY_POINTS)
+def test_statesync_entry_points_raise_without_cuda_unless_cpu_requested(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    points = _statesync_entry_points()
+    assert sorted(points) == STATESYNC_ENTRY_POINTS
     fn = points[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn()

@@ -17,7 +17,10 @@ or read in place (a broadcast constant). The BLS kernels (K7a
 bls_miller, K7b bls_final_exp) run on pairing buckets of real pairs and
 of p - 1 in every input with zero lines and pad pairs; K7b is also held
 against bls_math.final_exp, and on an item whose product is zero. The
-pairing buckets include the paths' own, (2, 256) and (128, 2).
+pairing buckets include the paths' own, (2, 256) and (128, 2). B8
+(sha256_batch) runs at every bucket shape, T in {1, 2, 4, 8} blocks by
+B in {16, 256, 4,096} messages, on lengths across the padding edges, and
+is held against hashlib too.
 """
 
 import numpy as np
@@ -339,3 +342,44 @@ def test_bls_verify_items_on_card_matches_cpu(card):
     got = BP.verify_items(triples, device=card)
     assert got.tolist() == [True, False, True]
     assert got.tolist() == BP.verify_items(triples, device="cpu").tolist()
+
+
+# -- B8: SHA-256 -----------------------------------------------------------------
+
+SHA_EDGES = (0, 1, 55, 56, 63, 64, 65, 119, 120, 250, 503)
+
+
+@pytest.mark.parametrize("t", [1, 2, 4, 8])
+@pytest.mark.parametrize("b", [16, 256, 4096])
+def test_sha256_kernel_equals_plain_and_hashlib(card, t, b):
+    """B8 at every bucket shape, the padding edges mixed in one bucket,
+    against its plain version (torch.equal) and hashlib."""
+    import hashlib
+
+    from tendermint_tpu_torch.crypto.cuda import sha256 as S
+
+    lens = [n for n in SHA_EDGES if S._padded_blocks(n) <= t]
+    rng = np.random.default_rng(t * b)
+    msgs = [rng.integers(0, 256, lens[i % len(lens)], dtype=np.uint8).tobytes()
+            for i in range(b - 3)]
+    packed, nblk = S.prepare_hash_batch(msgs, pad_to=b, block_pad=t)
+    words = torch.from_numpy(packed.view(np.int32)).to(card)
+    counts = torch.from_numpy(nblk.view(np.int32)).to(card)
+    before = S.SHA256.launches
+    got = S.sha256_batch(words, counts)
+    assert S.SHA256.launches == before + 1
+    assert torch.equal(got, S._sha256_plain(words, counts))
+    digests = got.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+    assert all(digests[32 * i : 32 * i + 32] == hashlib.sha256(m).digest()
+               for i, m in enumerate(msgs))
+
+
+def test_sha256_device_on_card_and_its_limit(card):
+    import hashlib
+
+    from tendermint_tpu_torch.crypto.cuda import sha256 as S
+
+    msgs = [bytes([i % 256]) * (i % 504) for i in range(4097)]
+    assert S.sha256_device(msgs, device=card) == [hashlib.sha256(m).digest() for m in msgs]
+    with pytest.raises(ValueError, match="exceeds the device unroll"):
+        S.sha256_device([b"x" * 504], device=card)
