@@ -153,11 +153,13 @@ failure exits non-zero, nothing is caught and carried past):
      and batched through the HashHub's device route (`use_device`, with
      MIN_DEVICE_BATCH = 1 as bench.py sets it): every root equal to the
      scalar one, the route counted and the kernel launched on each device
-     run; prints leaves/s and the route's split (host preparation, the
-     copies, the kernel by CUDA events) at the 16,384-leaf level and an
-     8,192-node inner level; B8 gets `kernels` rows at (4,096, 8) (the
-     250-byte leaves, 5 real blocks) and (4,096, 2) (the 65-byte inner
-     nodes), bound by the card's int32 rate;
+     run; prints leaves/s and the route's split at the 16,384-leaf level
+     and an 8,192-node inner level, read from the `hash` trace spans of
+     one `hash_hub.sha256_many` call (host preparation, the copies) with
+     CUDA events around each launch; B8 gets `kernels` rows at (4,096, 8)
+     (the 250-byte leaves, 5 real blocks) and (4,096, 2) (the 65-byte
+     inner nodes), bound by the card's int32 rate over the integer
+     instructions a block needs;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
@@ -319,13 +321,64 @@ def _final_exp_cost(m: int, npairs: int, real: list) -> tuple[int, int]:
 # B8 (sha256) is 32-bit integer work: the H100's rate for it is 64 INT32
 # lanes per SM (the SM's four partitions of 16), 132 SMs, at the SM clock
 # (`nvidia-smi --query-gpu=clocks.max.sm`; 1,980 MHz on the H100 SXM). Its
-# operations per compression block, counted from csrc/sha256.cu: 48
-# schedule words of 13 (two funnel shifts, a shift and two xors per sigma,
-# three adds), 64 rounds of 26 (Sigma1 5, Ch 4, T1 4 adds, Sigma0 5, Maj
-# 5, e and a 3 adds), and the 8 adds into the state.
+# operations per compression block, counted as sm_90 instructions (any
+# logic of three inputs is one LOP3, a sum of three one IADD3, a rotation
+# one SHF): 48 schedule words of 10 (sigma0 and sigma1 4 each: two
+# rotations, a shift, one LOP3; the four-term sum 2), 64 rounds of 14
+# (Sigma1 4, Ch 1, T1's five terms 2, Sigma0 4, Maj 1, e 1, a 1), and the
+# 8 adds into the state. Phase 16 also counts the integer instructions in
+# the block loop of the built SASS; the bound takes the smaller count.
 INT32_LANES_PER_SM = 64
 H100_SMS = 132
-SHA256_BLOCK_OPS = 48 * 13 + 64 * 26 + 8
+SHA256_BLOCK_OPS = 48 * 10 + 64 * 14 + 8
+#: SASS opcodes counted as integer work (moves, loads, stores, compares
+#: and branches are left out)
+_SASS_INT_OPS = {"LOP3", "LOP", "IADD3", "IADD", "SHF", "SHL", "SHR", "IMAD", "PRMT", "LEA"}
+
+
+def _sass_block_ops(source: str = "sha256", kernel: str = "sha256_batch_kernel") -> int | None:
+    """The integer instructions in `kernel`'s block loop in the SASS of
+    the built csrc/`source`.cu (cuobjdump): those between the loop's
+    backward branch and its target, of the opcodes in _SASS_INT_OPS,
+    IMAD.MOV (a move) left out. None when the toolkit has no cuobjdump."""
+    import re
+    from pathlib import Path
+
+    from tendermint_tpu_torch.crypto.cuda import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    lib = _build.build_all()[source]
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    body = next(f for f in sass.split("Function : ")[1:] if kernel in f.split("\n", 1)[0])
+    code, labels, pending = [], {}, []
+    for line in body.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if ins:
+            addr = int(ins.group(1), 16)
+            labels.update((name, addr) for name in pending)
+            pending = []
+            code.append((addr, re.sub(r"^@!?U?P\w+\s+", "", ins.group(2))))
+    loops = []
+    for addr, text in code:
+        if text.split()[0].split(".")[0] != "BRA":
+            continue
+        label, hexa = re.search(r"`\((\.L_x_\d+)\)", text), re.search(r"0x([0-9a-f]+)", text)
+        to = labels.get(label.group(1)) if label else int(hexa.group(1), 16) if hexa else None
+        if to is not None and to <= addr:
+            loops.append((addr - to, to, addr))
+    if not loops:
+        raise AssertionError(f"{kernel}: no loop found in the SASS of {lib}")
+    _, lo, hi = max(loops)
+    return sum(1 for addr, text in code if lo <= addr <= hi
+               and text.split()[0].split(".")[0] in _SASS_INT_OPS
+               and not text.startswith("IMAD.MOV"))
 
 
 def _int32_ops_per_s() -> float:
@@ -2652,43 +2705,48 @@ def _sha_bucket(dev, lengths, b, t, seed):
         torch.from_numpy(nblk.view(np.int32)).to(dev)
 
 
-def _device_split(dev, msgs) -> dict:
-    """The device route's parts for one `sha256_device` call on `msgs`,
-    summed over its chunks: `prepare_hash_batch` and the copies on the
-    host's clock (synchronised), the kernel by CUDA events and by the
-    host's clock around its launch and synchronisation."""
-    import numpy as np
+def _route_split(dev, msgs) -> dict:
+    """The device route's parts for one `hash_hub.sha256_many` call on
+    `msgs`, summed over its chunks: the host's preparation and the copies
+    from the `hash` trace spans that `sha256_device` emits, and each
+    launch timed by CUDA events around `sha256_batch`, which waits for
+    its kernel here so that the copy out is the copy alone."""
     import torch
 
+    from tendermint_tpu_torch.crypto import hash_hub
     from tendermint_tpu_torch.crypto.cuda import sha256 as S
+    from tendermint_tpu_torch.libs import trace
 
-    t_bucket = S.block_bucket(max(S._padded_blocks(len(m)) for m in msgs))
-    out = {"prepare_s": 0.0, "h2d_s": 0.0, "kernel_ms": 0.0, "kernel_wall_s": 0.0, "d2h_s": 0.0,
-           "chunks": 0}
-    for lo in range(0, len(msgs), S._MAX_BUCKET):
-        chunk = msgs[lo : lo + S._MAX_BUCKET]
-        t0 = time.perf_counter()
-        packed, nblk = S.prepare_hash_batch(chunk, pad_to=S.batch_bucket(len(chunk)), block_pad=t_bucket)
-        t1 = time.perf_counter()
-        words = torch.from_numpy(packed.view(np.int32)).to(dev)
-        counts = torch.from_numpy(nblk.view(np.int32)).to(dev)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+    launch = S.sha256_batch
+    kernel_ms = []
+
+    def timed(words, counts):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        state = S.sha256_batch(words, counts)
+        state = launch(words, counts)
         end.record()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        state.cpu()
-        t4 = time.perf_counter()
-        out["prepare_s"] += t1 - t0
-        out["h2d_s"] += t2 - t1
-        out["kernel_ms"] += start.elapsed_time(end)
-        out["kernel_wall_s"] += t3 - t2
-        out["d2h_s"] += t4 - t3
-        out["chunks"] += 1
-    out["shape"] = [S.batch_bucket(min(len(msgs), S._MAX_BUCKET)), t_bucket]
+        end.synchronize()
+        kernel_ms.append(start.elapsed_time(end))
+        return state
+
+    trace.configure(enabled=True)
+    trace.RECORDER.clear()
+    hash_hub.use_device(dev)
+    S.sha256_batch = timed
+    try:
+        hash_hub.sha256_many(msgs)
+    finally:
+        S.sha256_batch = launch
+        hash_hub.use_device(None)
+    spans = trace.RECORDER.dump(subsystem="hash")
+    trace.RECORDER.clear()
+    out = {f"{name}_ms": sum(sp["duration_ms"] for sp in spans if sp["name"] == name)
+           for name in ("prepare", "h2d", "launch", "d2h", "batch")}
+    out["kernel_ms"] = sum(kernel_ms)
+    out["chunks"] = len(kernel_ms)
+    out["shapes"] = [list(sp["attrs"]["shape"]) for sp in spans if sp["name"] == "prepare"]
+    if out["chunks"] == 0 or len(out["shapes"]) != out["chunks"]:
+        raise AssertionError(f"hash route split: {out['chunks']} launches, spans {spans}")
     return out
 
 
@@ -2766,23 +2824,26 @@ def drive_sha256(dev) -> tuple[dict, list]:
     _require_all_launched(MERKLE_PATH, launches, names=(S.SHA256.name,))
 
     leaves = [bytes([i % 256, (i >> 8) % 256]) * 125 for i in range(16384)]
-    split = {"leaf_level_16384": _device_split(dev, [b"\x00" + x for x in leaves]),
-             "inner_level_8192": _device_split(dev, [b"\x01" + bytes(64)] * 8192)}
+    split = {"leaf_level_16384": _route_split(dev, [b"\x00" + x for x in leaves]),
+             "inner_level_8192": _route_split(dev, [b"\x01" + bytes(64)] * 8192)}
 
     # the B8 rows: the 250-byte leaves (251 with the prefix: 5 real
     # blocks of the 8-block bucket) and the 65-byte inner nodes (2 of 2)
     ops_per_s = _int32_ops_per_s()
+    sass_ops = _sass_block_ops(S.SHA256.source)
+    block_ops = min(SHA256_BLOCK_OPS, sass_ops or SHA256_BLOCK_OPS)
     rows = []
     for b, t, length, reps in ((4096, 8, 251, 200), (4096, 2, 65, 200)):
         _msgs, words, counts = _sha_bucket(dev, [length], b, t, seed=length)
         real_blocks = int(counts.sum())
         row = _kernel_row(S.SHA256, b, lambda w=words, c=counts: S.sha256_batch(w, c),
                           lambda w=words, c=counts: S._sha256_plain(w, c),
-                          b * t * 64 + b * 4 + b * 32, real_blocks * SHA256_BLOCK_OPS, reps,
+                          real_blocks * 64 + b * 4 + b * 32, real_blocks * block_ops, reps,
                           ops_per_s=ops_per_s)
         row["shape"] = [b, t]
         row["message_bytes"] = length
         row["real_blocks"] = real_blocks
+        row["ops_per_block"] = {"counted": SHA256_BLOCK_OPS, "sass": sass_ops, "bound": block_ops}
         row["bound_rate"] = (f"int32: {H100_SMS} SMs x {INT32_LANES_PER_SM} lanes x clocks.max.sm "
                              f"= {ops_per_s:.4g} op/s")
         row["launches"] = launches[S.SHA256.name]

@@ -5,7 +5,9 @@
 // block with where(nblk > t, new, state)).
 //
 // Bound on an H100 by 32-bit integer operations: a block is 64 rounds of
-// ~26 operations and 48 schedule words of ~13, against 64 bytes read.
+// 14 instructions and 48 schedule words of 10 (logic of three inputs is
+// one LOP3, a sum of three one IADD3, a rotation one SHF), against 64
+// bytes read.
 // Each round depends on the one before, so one message is one serial
 // chain: one thread per message, the eight state words and a rolling
 // 16-word schedule in registers (the rounds are unrolled, so every

@@ -22,14 +22,23 @@ plain version `_sha256_plain`, which computes in int64 masked to 32 bits
 a kernel that does not build or launch raises, and so does a message
 longer than the device unroll — the hub routes those to the host before
 it dispatches.
+
+With tracing on, `sha256_device` times its parts per chunk as `hash`
+spans: ``hash.prepare`` (`prepare_hash_batch`), ``hash.h2d`` (the copies
+in), ``hash.launch`` (`sha256_batch`: the launch, which returns before
+the kernel ends) and ``hash.d2h`` (the copy out, which waits for the
+kernel). With tracing off it reads no clock.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from ...device import DEFAULT_DEVICE, resolve
+from ...libs import trace
 from . import _build
 
 #: bucket ladder for the batch axis (messages per kernel launch)
@@ -204,14 +213,28 @@ def sha256_device(msgs: list[bytes], *, device=DEFAULT_DEVICE) -> list[bytes]:
         if nb > nb_max:
             nb_max = nb
     t_bucket = block_bucket(nb_max)
+    tracing = trace.is_enabled()
     out: list[bytes] = []
     for lo in range(0, len(msgs), _MAX_BUCKET):
         chunk = msgs[lo : lo + _MAX_BUCKET]
         b_bucket = batch_bucket(len(chunk))
+        t0 = time.perf_counter() if tracing else 0.0
         packed, nblk = prepare_hash_batch(chunk, pad_to=b_bucket, block_pad=t_bucket)
+        if tracing:
+            t1 = time.perf_counter()
+            trace.emit("hash", "prepare", duration_s=t1 - t0, shape=(b_bucket, t_bucket))
         words = torch.from_numpy(packed.view(np.int32)).to(dev)
         counts = torch.from_numpy(nblk.view(np.int32)).to(dev)
-        state = sha256_batch(words, counts).cpu().numpy()
+        if tracing:
+            t2 = time.perf_counter()
+            trace.emit("hash", "h2d", duration_s=t2 - t1)
+        state = sha256_batch(words, counts)
+        if tracing:
+            t3 = time.perf_counter()
+            trace.emit("hash", "launch", duration_s=t3 - t2)
+        state = state.cpu().numpy()
+        if tracing:
+            trace.emit("hash", "d2h", duration_s=time.perf_counter() - t3)
         digests = state[: len(chunk)].view(np.uint32).astype(">u4").tobytes()
         out.extend(digests[i * 32 : (i + 1) * 32] for i in range(len(chunk)))
     return out

@@ -52,10 +52,13 @@ LANE_VERIFY = "verify"
 LANE_LIGHT = "light"
 _LANES = (LANE_BUILD, LANE_VERIFY, LANE_LIGHT)
 
-#: the device route engages only for batches at least this wide — below
-#: it even a warm kernel launch loses to the hashlib loop. Wide batches
-#: also emit a `hash.batch` span when tracing is on (a span per narrow
-#: tree level would cost more than the hashing and flood the ring)
+#: the device route engages only for batches at least this wide: the
+#: reference's default (TMTPU_MIN_HASH_BATCH), kept as it is. It is not
+#: a measured crossover: on an NVIDIA H100 80GB HBM3 at 700 W the route
+#: lost to the hashlib loop at every width measured so far
+#: (chip_smoke.py phase 16, 64 to 16,384 leaves). Wide batches also
+#: emit a `hash.batch` span when tracing is on (a span per narrow tree
+#: level would cost more than the hashing and flood the ring)
 MIN_DEVICE_BATCH = 256
 
 #: per-lane and global counters; plain dict with unlocked += on the hot
@@ -157,13 +160,14 @@ def sha256_many(msgs: list[bytes], *, lane: str | None = None) -> list[bytes]:
     st["lane_messages"][lane] += n
     s = _sha256
     if n >= MIN_DEVICE_BATCH:
-        t0 = time.monotonic()
+        tracing = trace.is_enabled()
+        t0 = time.monotonic() if tracing else 0.0
         dev = _device
         out = _device_many(msgs, dev) if dev is not None else None
         route = "cpu" if out is None else ("cuda" if dev.type == "cuda" else "plain")
         if out is None:
             out = [s(m).digest() for m in msgs]
-        if trace.is_enabled():
+        if tracing:
             trace.emit(
                 "hash", "batch", duration_s=time.monotonic() - t0, n=n, lane=lane, route=route
             )

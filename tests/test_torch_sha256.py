@@ -175,8 +175,28 @@ def test_hash_batch_span_names_the_route(device_route):
     hub.sha256_many(_msgs([65] * 16))
     hub.use_device(None)
     hub.sha256_many(_msgs([65] * 16))
-    routes = [s["attrs"]["route"] for s in trace.RECORDER.dump(subsystem="hash")]
+    routes = [s["attrs"]["route"] for s in trace.RECORDER.dump(subsystem="hash")
+              if s["name"] == "batch"]
     assert routes == ["plain", "cpu"]
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_sha256_device_spans_its_parts_per_chunk(enabled):
+    from tendermint_tpu_torch.libs import trace
+
+    trace.RECORDER.clear()
+    trace.configure(enabled=enabled)
+    try:
+        S.sha256_device(_msgs([65] * 4097), device="cpu")
+        spans = trace.RECORDER.dump(subsystem="hash")
+    finally:
+        trace.configure(enabled=True)
+        trace.RECORDER.clear()
+    if not enabled:
+        assert spans == []
+        return
+    assert [s["name"] for s in spans] == ["prepare", "h2d", "launch", "d2h"] * 2
+    assert [s["attrs"]["shape"] for s in spans if s["name"] == "prepare"] == [(4096, 2), (16, 2)]
 
 
 @pytest.mark.parametrize("n", [64, 1024])
