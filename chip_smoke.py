@@ -144,22 +144,26 @@ failure exits non-zero, nothing is caught and carried past):
      worst-case inputs); prints the wall per height and the host split; a
      tampered aggregate at the sixth height must raise naming that height
      and count nothing;
- 16. SHA-256 (B8): the kernel torch.equal to its plain version, and its
-     digests equal to hashlib's, at every bucket shape (T in 1, 2, 4, 8
-     blocks by B in 16, 256, 4,096 messages) with lengths across the
-     padding edges mixed in each bucket; a 504-byte message must raise.
-     Then bench_merkle's leaves half (bench.py:855-947): 64 / 1,024 /
-     16,384 leaves of 250 bytes, scalar recursive, batched on the host,
-     and batched through the HashHub's device route (`use_device`, with
-     MIN_DEVICE_BATCH = 1 as bench.py sets it): every root equal to the
-     scalar one, the route counted and the kernel launched on each device
-     run; prints leaves/s and the route's split at the 16,384-leaf level
-     and an 8,192-node inner level, read from the `hash` trace spans of
-     one `hash_hub.sha256_many` call (host preparation, the copies) with
-     CUDA events around each launch; B8 gets `kernels` rows at (4,096, 8)
-     (the 250-byte leaves, 5 real blocks) and (4,096, 2) (the 65-byte
-     inner nodes), bound by the card's int32 rate over the integer
-     instructions a block needs;
+ 16. SHA-256 (B8, one launch a batch, padding on the card): the kernel
+     torch.equal to its plain version (the reference's host packing and
+     buckets), and its digests equal to hashlib's, at 1, 31, 32, 33,
+     4,096, 4,097 and 16,384 messages of 0 to 503 bytes across the padding
+     edges mixed in each launch, packed after a prefix of n % 16 bytes so
+     that messages start at every alignment; a 504-byte message must raise
+     through `sha256_device` and `sha256_bytes`. Then bench_merkle's
+     leaves half (bench.py:855-947): 64 / 1,024 / 16,384 leaves of 250
+     bytes, scalar recursive, batched on the host, and batched through the
+     HashHub's device route (`use_device`, with MIN_DEVICE_BATCH = 1 as
+     bench.py sets it): every root equal to the scalar one, and B8 launched
+     exactly once a device batch; prints leaves/s, the route's split at the
+     16,384-leaf level and an 8,192-node inner level (the `hash` trace
+     spans of one `hash_hub.sha256_many` call, CUDA events around the one
+     launch), and the narrowest batch width at which the route beats the
+     hashlib loop for 251-byte leaves and 65-byte nodes; B8 gets `kernels`
+     rows at 16,384 x 251, 8,192 x 65 and 4,096 x 251 bytes, each bound by
+     the largest of its bytes, its int32 instructions at the card's int32
+     rate, and its serial chain (a block's cycles, one thread alone on the
+     card timed by clock64, x the message's blocks / clocks.max.sm);
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
@@ -185,6 +189,7 @@ package. Build output goes to build/torch_ext/.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import random
@@ -249,6 +254,13 @@ SS_BLS_TAMPER_INDEX = 5
 SS_CHAIN_ID = "ss-bls-chain"
 # phase 16, bench.py's bench_merkle leaves half: 250-byte leaves
 MERKLE_LEAVES = (64, 1024, 16384)
+# phase 16's checks of B8: the batch widths (around its 32 messages a
+# thread block, the reference's 4,096 bucket, the 16,384-leaf level) and
+# the message lengths mixed in each (the padding edges, the leaves)
+SHA_COUNTS = (1, 31, 32, 33, 4096, 4097, 16384)
+SHA_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 119, 120, 250, 251, 503)
+# the batch widths at which phase 16 races the device route against hashlib
+CROSSOVER_WIDTHS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # CUDA-core float32 rate (an FMA counted as two operations). All three
@@ -327,7 +339,9 @@ def _final_exp_cost(m: int, npairs: int, real: list) -> tuple[int, int]:
 # rotations, a shift, one LOP3; the four-term sum 2), 64 rounds of 14
 # (Sigma1 4, Ch 1, T1's five terms 2, Sigma0 4, Maj 1, e 1, a 1), and the
 # 8 adds into the state. Phase 16 also counts the integer instructions in
-# the block loop of the built SASS; the bound takes the smaller count.
+# the block loop of the built SASS, which holds both of the kernel's ways of
+# reading a block's words (whole, or with the padding), so more than a
+# block issues; the bound takes the smaller count.
 INT32_LANES_PER_SM = 64
 H100_SMS = 132
 SHA256_BLOCK_OPS = 48 * 10 + 64 * 14 + 8
@@ -336,7 +350,7 @@ SHA256_BLOCK_OPS = 48 * 10 + 64 * 14 + 8
 _SASS_INT_OPS = {"LOP3", "LOP", "IADD3", "IADD", "SHF", "SHL", "SHR", "IMAD", "PRMT", "LEA"}
 
 
-def _sass_block_ops(source: str = "sha256", kernel: str = "sha256_batch_kernel") -> int | None:
+def _sass_block_ops(source: str = "sha256", kernel: str = "sha256_bytes_kernel") -> int | None:
     """The integer instructions in `kernel`'s block loop in the SASS of
     the built csrc/`source`.cu (cuobjdump): those between the loop's
     backward branch and its target, of the opcodes in _SASS_INT_OPS,
@@ -381,10 +395,48 @@ def _sass_block_ops(source: str = "sha256", kernel: str = "sha256_batch_kernel")
                and not text.startswith("IMAD.MOV"))
 
 
-def _int32_ops_per_s() -> float:
+def _sm_max_hz() -> float:
     mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, check=True).stdout.split()[0]
-    return H100_SMS * INT32_LANES_PER_SM * float(mhz) * 1e6
+    return float(mhz) * 1e6
+
+
+def _int32_ops_per_s() -> float:
+    return H100_SMS * INT32_LANES_PER_SM * _sm_max_hz()
+
+
+def _block_cycles(dev, reps: int = 5) -> dict:
+    """B8's serial chain: one message hashed by one thread alone on the
+    card (csrc/sha256.cu's sha256_cycles_kernel), its block loop timed by
+    clock64, at 55 bytes (one block) and 503 (eight); the least of `reps`
+    launches each. A block costs the difference over seven."""
+    import ctypes
+
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import _build
+
+    fn = ctypes.CDLL(str(_build.build_all()["sha256"])).sha256_cycles_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    msg = bytes((7 * j + 3) % 256 for j in range(503))
+    src = torch.frombuffer(bytearray(msg), dtype=torch.uint8).to(dev)
+    out = torch.empty(32, dtype=torch.uint8, device=dev)
+    clk = torch.zeros(1, dtype=torch.int64, device=dev)
+    least = {}
+    for n in (55, 503):
+        runs = []
+        for _ in range(reps):
+            if fn(src.data_ptr(), n, out.data_ptr(), clk.data_ptr(), *_build.stream_args(src)):
+                raise RuntimeError("sha256_cycles_kernel failed to launch")
+            torch.cuda.synchronize()
+            runs.append(int(clk.item()))
+            if bytes(out.cpu().tolist()) != hashlib.sha256(msg[:n]).digest():
+                raise AssertionError(f"sha256_cycles_kernel ({n} bytes): digest differs from hashlib")
+        least[n] = min(runs)
+    return {"cycles_1_block": least[55], "cycles_8_blocks": least[503],
+            "cycles_per_block": (least[503] - least[55]) / 7}
 
 
 def _bound(n_bytes: float, n_ops: float, ops_per_s: float = CORE_OPS_PER_S) -> tuple[float, str]:
@@ -496,8 +548,11 @@ def _hold(kernel, what, run, plain) -> int:
     return int((got - want).abs().max().item())
 
 
-def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps, ops_per_s=CORE_OPS_PER_S) -> dict:
-    """A `kernels` row: held against the plain version, then timed."""
+def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps, ops_per_s=CORE_OPS_PER_S,
+                plain_reps=None, plain_profile=True) -> dict:
+    """A `kernels` row: held against the plain version, then timed (the
+    plain version over `plain_reps` calls, reps // 5 by default, and
+    profiled unless `plain_profile` is False)."""
     err = _hold(kernel, f"m={m}", run, plain)
     bound_ms, bound_by = _bound(n_bytes, n_ops, ops_per_s)
     # the kernel alone on the card (profiler), three repeats
@@ -506,7 +561,7 @@ def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps, ops_per_s=CORE_OPS_
     measured = sorted(r for r in repeats if r is not None)
     ms = measured[len(measured) // 2] if measured else None
     wrapper_ms = sorted(wrappers)[1]
-    plain_ms = _time_ms(plain, max(1, reps // 5))
+    plain_ms = _time_ms(plain, plain_reps or max(1, reps // 5))
     return {
         "name": kernel.name,
         "m": m,
@@ -525,7 +580,7 @@ def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps, ops_per_s=CORE_OPS_
         "wrapper_ms": wrapper_ms,
         "wrapper_ms_repeats": wrappers,
         "plain_ms": plain_ms,
-        "plain_device_ms": _device_ms(plain, 1),
+        "plain_device_ms": _device_ms(plain, 1) if plain_profile else None,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "bound_ops_per_s": ops_per_s,
@@ -2690,97 +2745,137 @@ def _paired_best(fa, fb, reps=5):
     return best_a, best_b
 
 
-def _sha_bucket(dev, lengths, b, t, seed):
-    """A (b, t) bucket of messages of `lengths` (cycled), seeded."""
+def _sha_batch(dev, n, lengths, prefix, seed):
+    """n seeded messages of `lengths` (cycled) packed after `prefix` bytes:
+    (messages, the buffer on `dev`, the offsets on the host)."""
     import numpy as np
     import torch
 
-    from tendermint_tpu_torch.crypto.cuda import sha256 as S
-
     rng = np.random.default_rng(seed)
     msgs = [rng.integers(0, 256, lengths[i % len(lengths)], dtype=np.uint8).tobytes()
-            for i in range(b)]
-    packed, nblk = S.prepare_hash_batch(msgs, pad_to=b, block_pad=t)
-    return msgs, torch.from_numpy(packed.view(np.int32)).to(dev), \
-        torch.from_numpy(nblk.view(np.int32)).to(dev)
+            for i in range(n)]
+    buf = torch.frombuffer(bytearray(bytes(prefix) + b"".join(msgs)), dtype=torch.uint8).to(dev)
+    offsets = torch.from_numpy(np.cumsum([prefix] + [len(m) for m in msgs]).astype(np.int64))
+    return msgs, buf, offsets
 
 
 def _route_split(dev, msgs) -> dict:
     """The device route's parts for one `hash_hub.sha256_many` call on
-    `msgs`, summed over its chunks: the host's preparation and the copies
-    from the `hash` trace spans that `sha256_device` emits, and each
-    launch timed by CUDA events around `sha256_batch`, which waits for
-    its kernel here so that the copy out is the copy alone."""
+    `msgs`: the host's preparation and the copies from the `hash` trace
+    spans that `sha256_device` emits, and the launch timed by CUDA events
+    around `_bytes_cuda`, which waits for its kernel here so that the copy
+    out is the copy alone; `outside_ms` is the rest of the hub's
+    `hash.batch` span (the lengths and the routing)."""
     import torch
 
     from tendermint_tpu_torch.crypto import hash_hub
     from tendermint_tpu_torch.crypto.cuda import sha256 as S
     from tendermint_tpu_torch.libs import trace
 
-    launch = S.sha256_batch
+    launch = S._bytes_cuda
     kernel_ms = []
 
-    def timed(words, counts):
+    def timed(*args):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        state = launch(words, counts)
+        digests = launch(*args)
         end.record()
         end.synchronize()
         kernel_ms.append(start.elapsed_time(end))
-        return state
+        return digests
 
     trace.configure(enabled=True)
     trace.RECORDER.clear()
     hash_hub.use_device(dev)
-    S.sha256_batch = timed
+    S._bytes_cuda = timed
     try:
         hash_hub.sha256_many(msgs)
     finally:
-        S.sha256_batch = launch
+        S._bytes_cuda = launch
         hash_hub.use_device(None)
     spans = trace.RECORDER.dump(subsystem="hash")
     trace.RECORDER.clear()
     out = {f"{name}_ms": sum(sp["duration_ms"] for sp in spans if sp["name"] == name)
            for name in ("prepare", "h2d", "launch", "d2h", "batch")}
+    out["outside_ms"] = out["batch_ms"] - sum(out[f"{k}_ms"] for k in ("prepare", "h2d", "launch", "d2h"))
     out["kernel_ms"] = sum(kernel_ms)
-    out["chunks"] = len(kernel_ms)
-    out["shapes"] = [list(sp["attrs"]["shape"]) for sp in spans if sp["name"] == "prepare"]
-    if out["chunks"] == 0 or len(out["shapes"]) != out["chunks"]:
-        raise AssertionError(f"hash route split: {out['chunks']} launches, spans {spans}")
+    out["launches"] = len(kernel_ms)
+    prep = [sp["attrs"] for sp in spans if sp["name"] == "prepare"]
+    if out["launches"] != 1 or len(prep) != 1:
+        raise AssertionError(f"hash route split: {out['launches']} launches, spans {spans}")
+    out["messages"], out["bytes"] = prep[0]["n"], prep[0]["bytes"]
+    out["messages_per_s"] = out["messages"] / out["batch_ms"] * 1e3
     return out
+
+
+def _crossover(dev, make_msgs) -> dict:
+    """The device route against the hashlib loop, both through
+    `hash_hub.sha256_many` (MIN_DEVICE_BATCH = 1), at each width of
+    CROSSOVER_WIDTHS (bench_merkle's interleaved best of 5): the times and
+    the narrowest width at which the route is faster."""
+    from tendermint_tpu_torch.crypto import hash_hub
+
+    saved = hash_hub.MIN_DEVICE_BATCH
+    hash_hub.MIN_DEVICE_BATCH = 1
+    rows = []
+    try:
+        for w in CROSSOVER_WIDTHS:
+            msgs = make_msgs(w)
+            hash_hub.use_device(dev)
+            if hash_hub.sha256_many(msgs) != [hashlib.sha256(m).digest() for m in msgs]:
+                raise AssertionError(f"crossover at {w}: the device route's digests differ")
+
+            def host():
+                hash_hub.use_device(None)
+                hash_hub.sha256_many(msgs)
+
+            def card():
+                hash_hub.use_device(dev)
+                hash_hub.sha256_many(msgs)
+
+            th, td = _paired_best(host, card)
+            rows.append({"width": w, "hashlib_ms": th * 1e3, "device_ms": td * 1e3})
+    finally:
+        hash_hub.use_device(None)
+        hash_hub.MIN_DEVICE_BATCH = saved
+    wins = [r["width"] for r in rows if r["device_ms"] < r["hashlib_ms"]]
+    return {"narrowest_win": min(wins) if wins else None, "widths": rows}
 
 
 def drive_sha256(dev) -> tuple[dict, list]:
     """Phase 16: B8 torch.equal to its plain version and equal to hashlib
-    at every bucket shape; bench_merkle's leaves half through the HashHub's
-    device route (launches counted); the route's split; the B8 rows."""
-    import hashlib
-
+    at every batch width of SHA_COUNTS; bench_merkle's leaves half through
+    the HashHub's device route (launches counted, one a device batch); the
+    route's split and its crossover with hashlib; the B8 rows."""
     import numpy as np
 
     from tendermint_tpu_torch.crypto import hash_hub, merkle
     from tendermint_tpu_torch.crypto.cuda import sha256 as S
 
-    edges = (0, 1, 55, 56, 63, 64, 65, 119, 120, 250, 503)
     held = []
-    for t in (1, 2, 4, 8):
-        lens = [n for n in edges if S._padded_blocks(n) <= t]
-        for b in (16, 256, 4096):
-            msgs, words, counts = _sha_bucket(dev, lens, b, t, seed=t * b)
-            err = _hold(S.SHA256, f"({b}, {t})", lambda: S.sha256_batch(words, counts),
-                        lambda: S._sha256_plain(words, counts))
-            digests = S.sha256_batch(words, counts).cpu().numpy().view(np.uint32)
-            digests = digests.astype(">u4").tobytes()
-            if any(digests[32 * i : 32 * i + 32] != hashlib.sha256(m).digest()
-                   for i, m in enumerate(msgs)):
-                raise AssertionError(f"sha256_batch ({b}, {t}): digests differ from hashlib")
-            held.append({"shape": [b, t], "lengths": lens, "max_abs_err": err, "hashlib": True})
-    try:
-        S.sha256_device([b"x" * 504], device=dev)
-    except ValueError as e:
-        over_limit = str(e)
-    else:
-        raise AssertionError("a 504-byte message hashed on the device")
+    for n in SHA_COUNTS:
+        # the lengths cycled from a different place for each n, after n % 16
+        # bytes: messages and thread blocks start at every alignment
+        lens = SHA_LENGTHS[n % len(SHA_LENGTHS):] + SHA_LENGTHS[: n % len(SHA_LENGTHS)]
+        msgs, buf, offsets = _sha_batch(dev, n, lens, n % 16, seed=n)
+        err = _hold(S.SHA256, f"n={n}", lambda: S.sha256_bytes(buf, offsets),
+                    lambda: S._sha256_bytes_plain(buf, offsets))
+        digests = S.sha256_bytes(buf, offsets).cpu().numpy().view("V32").ravel().tolist()
+        if digests != [hashlib.sha256(m).digest() for m in msgs]:
+            raise AssertionError(f"sha256_bytes (n={n}): digests differ from hashlib")
+        held.append({"n": n, "prefix": n % 16, "bytes": buf.numel(), "max_abs_err": err,
+                     "hashlib": True})
+    over_limit = {}
+    for entry, call in (
+        ("sha256_device", lambda: S.sha256_device([b"ok", b"x" * 504], device=dev)),
+        ("sha256_bytes", lambda: S.sha256_bytes(*_sha_batch(dev, 2, [2, 504], 0, seed=504)[1:])),
+    ):
+        try:
+            call()
+        except ValueError as e:
+            over_limit[entry] = str(e)
+        else:
+            raise AssertionError(f"{entry}: a 504-byte message hashed on the device")
 
     # bench_merkle's leaves half: scalar recursive, batched on the host,
     # batched through the device route from one message (bench.py's
@@ -2807,8 +2902,9 @@ def drive_sha256(dev) -> tuple[dict, list]:
             _, td = _paired_best(lambda: None, lambda: merkle.hash_from_byte_slices(leaves))
             stats = hash_hub.stats_snapshot()
             launched = S.SHA256.launches - before
-            if stats["device_batches"] == 0 or launched == 0:
-                raise AssertionError(f"merkle {n}: device route not taken: {stats}, {launched}")
+            if stats["device_batches"] == 0 or launched != stats["device_batches"]:
+                raise AssertionError(f"merkle {n}: {launched} launches for the device batches "
+                                     f"{stats}")
             leaves_rows[str(n)] = {
                 "scalar_leaves_per_s": n / ts, "batched_cpu_leaves_per_s": n / tb,
                 "device_leaves_per_s": n / td, "device_over_host": tb / td,
@@ -2816,7 +2912,7 @@ def drive_sha256(dev) -> tuple[dict, list]:
                 "batches": stats["batches"], "launches": launched,
             }
             print(f"merkle {n:>6} leaves: scalar {n / ts:,.0f}/s, host batched {n / tb:,.0f}/s, "
-                  f"device {n / td:,.0f}/s ({launched} launches)")
+                  f"device {n / td:,.0f}/s ({launched} launches, one a device batch)")
     finally:
         hash_hub.use_device(None)
         hash_hub.MIN_DEVICE_BATCH = saved
@@ -2826,31 +2922,53 @@ def drive_sha256(dev) -> tuple[dict, list]:
     leaves = [bytes([i % 256, (i >> 8) % 256]) * 125 for i in range(16384)]
     split = {"leaf_level_16384": _route_split(dev, [b"\x00" + x for x in leaves]),
              "inner_level_8192": _route_split(dev, [b"\x01" + bytes(64)] * 8192)}
+    crossover = {
+        "leaves_251": _crossover(dev, lambda w: [b"\x00" + x for x in leaves[:w]]),
+        "nodes_65": _crossover(dev, lambda w: [b"\x01" + i.to_bytes(4, "big") * 16
+                                               for i in range(w)]),
+    }
+    print(f"crossover with hashlib: 251-byte leaves from {crossover['leaves_251']['narrowest_win']}, "
+          f"65-byte nodes from {crossover['nodes_65']['narrowest_win']} messages")
 
-    # the B8 rows: the 250-byte leaves (251 with the prefix: 5 real
-    # blocks of the 8-block bucket) and the 65-byte inner nodes (2 of 2)
+    # the B8 rows: the 250-byte leaves (251 with the prefix: 5 blocks) at
+    # the 16,384-leaf level and at the old rows' 4,096, the 65-byte inner
+    # nodes (2 blocks) at the 8,192-node level; the bound is the largest of
+    # the bytes, the int32 operations and the serial chain
+    hz = _sm_max_hz()
     ops_per_s = _int32_ops_per_s()
     sass_ops = _sass_block_ops(S.SHA256.source)
     block_ops = min(SHA256_BLOCK_OPS, sass_ops or SHA256_BLOCK_OPS)
+    chain = _block_cycles(dev)
     rows = []
-    for b, t, length, reps in ((4096, 8, 251, 200), (4096, 2, 65, 200)):
-        _msgs, words, counts = _sha_bucket(dev, [length], b, t, seed=length)
-        real_blocks = int(counts.sum())
-        row = _kernel_row(S.SHA256, b, lambda w=words, c=counts: S.sha256_batch(w, c),
-                          lambda w=words, c=counts: S._sha256_plain(w, c),
-                          real_blocks * 64 + b * 4 + b * 32, real_blocks * block_ops, reps,
-                          ops_per_s=ops_per_s)
-        row["shape"] = [b, t]
+    for n, length, reps in ((16384, 251, 200), (8192, 65, 200), (4096, 251, 200)):
+        _msgs, buf, offsets = _sha_batch(dev, n, [length], 0, seed=length)
+        blocks = S._padded_blocks(length)
+        n_bytes = buf.numel() + 8 * (n + 1) + 32 * n
+        row = _kernel_row(S.SHA256, n, lambda b=buf, o=offsets: S.sha256_bytes(b, o),
+                          lambda b=buf, o=offsets: S._sha256_bytes_plain(b, o),
+                          n_bytes, n * blocks * block_ops, reps, ops_per_s=ops_per_s,
+                          plain_reps=1, plain_profile=False)
+        serial_ms = chain["cycles_per_block"] * blocks / hz * 1e3
+        bounds = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+                  "int32": n * blocks * block_ops / ops_per_s * 1e3, "serial_chain": serial_ms}
+        kind = max(bounds, key=bounds.get)
+        row["bound_ms"] = bounds[kind]
+        row["bound_by"] = "bytes" if kind == "bytes" else "operations"
+        row["bound_kind"] = kind
+        row["bounds_ms"] = bounds
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["shape"] = [n, length]
         row["message_bytes"] = length
-        row["real_blocks"] = real_blocks
+        row["real_blocks"] = n * blocks
         row["ops_per_block"] = {"counted": SHA256_BLOCK_OPS, "sass": sass_ops, "bound": block_ops}
+        row["serial_chain"] = dict(chain, sm_max_hz=hz, blocks=blocks)
         row["bound_rate"] = (f"int32: {H100_SMS} SMs x {INT32_LANES_PER_SM} lanes x clocks.max.sm "
                              f"= {ops_per_s:.4g} op/s")
         row["launches"] = launches[S.SHA256.name]
         row["path"] = MERKLE_PATH
         rows.append(row)
     return {"held": held, "over_limit": over_limit, "leaves": leaves_rows, "launches": launches,
-            "device_split": split}, rows
+            "device_split": split, "crossover": crossover, "serial_chain": chain}, rows
 
 
 def main() -> int:

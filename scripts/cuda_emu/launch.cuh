@@ -4,18 +4,22 @@
 #pragma once
 #include <cuda_runtime.h>
 static inline cudaError_t use_device(int) { return cudaSuccess; }
-struct EmuCopy { void* dst; const void* src; bool valid; };
+struct EmuCopy { void* dst; const void* src; int bytes; };
 inline thread_local std::vector<EmuCopy> emu_pending;
 inline thread_local std::vector<std::vector<EmuCopy>> emu_groups;
 inline void emu_do(const EmuCopy& c) {
-  if (c.valid) std::memcpy(c.dst, c.src, 16); else std::memset(c.dst, 0, 16);
+  std::memcpy(c.dst, c.src, c.bytes);
+  std::memset((char*)c.dst + c.bytes, 0, 16 - c.bytes);
+}
+inline void cp_async16_part(void* smem, const void* gmem, int bytes) {
+#ifdef EMU_EAGER
+  emu_do({smem, gmem, bytes});
+#else
+  emu_pending.push_back({smem, gmem, bytes});
+#endif
 }
 inline void cp_async16(void* smem, const void* gmem, bool valid) {
-#ifdef EMU_EAGER
-  emu_do({smem, gmem, valid});
-#else
-  emu_pending.push_back({smem, gmem, valid});
-#endif
+  cp_async16_part(smem, gmem, valid ? 16 : 0);
 }
 inline void cp_async_commit() { emu_groups.push_back(emu_pending); emu_pending.clear(); }
 template <int Pending> inline void cp_async_wait() {

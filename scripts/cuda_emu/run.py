@@ -17,10 +17,11 @@ broadcast constant) and B2 on limbs in [0, 512) and [-511, 512), row 0
 at 511; K7a (bls_miller) and K7b (bls_final_exp) on pairing batches of
 real pairs at (2, 2) and (2, 4), the latter with pad pairs, and on p - 1
 in every input with zero lines and pad pairs; K7b alone also on lanes of
-p - 1, of one, and an item whose product is zero; B8 (sha256) at each
-block bucket on messages of 0 to 503 bytes across the padding edges,
-with pad rows, a count above the bucket and a negative count, against
-its plain version and hashlib.
+p - 1, of one, and an item whose product is zero; B8 (sha256_bytes) on
+batches of 1 to 97 messages of 0 to 503 bytes across the padding edges,
+packed after a prefix of 0 to 15 bytes so that they start at every
+alignment, against its plain version and hashlib, and its one-thread
+cycle probe against hashlib.
 
 --eager runs each cp.async copy when it is issued instead of when its
 group is waited for. --tsan builds with ThreadSanitizer, which reports
@@ -56,6 +57,12 @@ def build(flags: list[str], suffix: str) -> None:
                 lambda m: f"emu_launch({m.group(2)}, [=] {{ {m.group(1)}({m.group(3)}); }});",
                 f.read_text(),
                 flags=re.S,
+            )
+            # dynamic shared memory: the block's buffer that emu_launch holds
+            text = re.sub(
+                r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
+                lambda m: f"{m.group(1)}* {m.group(2)} = ({m.group(1)}*)emu_dynamic_smem;",
+                text,
             )
             (src / f.name).write_text(text)
     (src / "launch.cuh").write_text((HERE / "launch.cuh").read_text())
@@ -131,10 +138,12 @@ def check(suffix: str) -> bool:
 
 
 def check_sha256(libs) -> bool:
-    """B8 against its plain version and hashlib: every block bucket, the
-    padding edges mixed in one batch, pad rows (count 0), one count above
-    the bucket and one below zero (the kernel clamps both, as the mask
-    does)."""
+    """B8 against its plain version and hashlib: n messages of the padding
+    edges' lengths mixed (cycled from a different place for each n), after
+    a prefix of 0 to 15 bytes, so that messages and thread blocks start at
+    every alignment and the buffer ends off 16; n around the 32 messages
+    of a thread block. The one-thread cycle probe on 1- and 8-block
+    messages against hashlib."""
     import hashlib
 
     import numpy as np
@@ -143,26 +152,35 @@ def check_sha256(libs) -> bool:
     from tendermint_tpu_torch.crypto.cuda import sha256 as S
 
     P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    launch = libs["sha256"].sha256_batch_launch
-    launch.argtypes = [P, P, P, I64, I32, I32, P]
-    edges = (0, 1, 55, 56, 63, 64, 65, 119, 120, 250, 503)
+    launch = libs["sha256"].sha256_bytes_launch
+    launch.argtypes = [P, I64, P, P, I64, I32, I32, P]
+    cycles = libs["sha256"].sha256_cycles_launch
+    cycles.argtypes = [P, I32, P, P, I32, P]
+    edges = (0, 1, 55, 56, 63, 64, 65, 119, 120, 250, 251, 503)
     ok = True
-    for t in (1, 2, 4, 8):
-        lens = [n for n in edges if S._padded_blocks(n) <= t]
-        msgs = [bytes((7 * i + j) % 256 for j in range(n)) for i, n in enumerate(lens * 2)]
-        packed, nblk = S.prepare_hash_batch(msgs, pad_to=S.batch_bucket(len(msgs) + 3), block_pad=t)
-        words = torch.from_numpy(packed.view(np.int32))
-        counts = torch.from_numpy(nblk.view(np.int32)).clone()
-        counts[-2], counts[-1] = t + 3, -1
-        out = torch.empty((words.shape[0], 8), dtype=torch.int32)
-        launch(words.data_ptr(), counts.data_ptr(), out.data_ptr(), words.shape[0], t, 0, None)
-        equal = torch.equal(out, S._sha256_plain(words, counts))
-        digests = out[: len(msgs)].numpy().view(np.uint32).astype(">u4").tobytes()
-        same = all(digests[32 * i : 32 * i + 32] == hashlib.sha256(m).digest()
-                   for i, m in enumerate(msgs))
+    for n, prefix in ((1, 0), (1, 13), (31, 5), (32, 0), (33, 7), (70, 15), (97, 3)):
+        lens = [edges[(i * 5 + n) % len(edges)] for i in range(n)]
+        msgs = [bytes((7 * i + j) % 256 for j in range(k)) for i, k in enumerate(lens)]
+        buf = torch.from_numpy(np.frombuffer(bytes(range(prefix)) + b"".join(msgs), np.uint8).copy())
+        offsets = torch.from_numpy(np.cumsum([prefix] + lens).astype(np.int64))
+        out = torch.empty((n, 32), dtype=torch.uint8)
+        if launch(buf.data_ptr(), buf.numel(), offsets.data_ptr(), out.data_ptr(), n,
+                  S._stage_bytes(n, max(lens)), 0, None):
+            raise SystemExit("sha256_bytes launch failed")
+        equal = torch.equal(out, S._sha256_bytes_plain(buf, offsets))
+        same = all(bytes(out[i].tolist()) == hashlib.sha256(m).digest() for i, m in enumerate(msgs))
         ok &= equal and same
-        print(f"sha256 T = {t}, {len(msgs)} messages of {lens} bytes, B = {words.shape[0]}: "
+        print(f"sha256_bytes n = {n} after {prefix} bytes, {buf.numel()} bytes: "
               f"plain {equal}, hashlib {same}")
+    for k in (55, 503):
+        msg = bytes((3 * j + 1) % 256 for j in range(k))
+        src = torch.from_numpy(np.frombuffer(msg, np.uint8).copy())
+        out, clk = torch.empty(32, dtype=torch.uint8), torch.zeros(1, dtype=torch.int64)
+        if cycles(src.data_ptr(), k, out.data_ptr(), clk.data_ptr(), 0, None):
+            raise SystemExit("sha256_cycles launch failed")
+        same = bytes(out.tolist()) == hashlib.sha256(msg).digest()
+        ok &= same and int(clk) > 0
+        print(f"sha256_cycles {k} bytes: hashlib {same}, counter {int(clk) > 0}")
     return ok
 
 

@@ -23,6 +23,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                : "memory");
 }
 
+// Start copying the first `bytes` (0 to 16) of the 16 bytes at `gmem` to
+// `smem` (both 16-byte aligned), bypassing L1; the rest of the 16 bytes at
+// `smem` are written zero, and nothing past `bytes` is read.
+__device__ __forceinline__ void cp_async16_part(void* smem, const void* gmem, int bytes) {
+  unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
 // Close the calling thread's copies started since the last commit into
 // one group (an empty group when there were none).
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,30 +1,54 @@
-// B8: batched SHA-256 compression with a per-message block count,
-// (B, T, 16) uint32 big-endian words + (B,) counts -> (B, 8) state words.
-// Replaces tendermint_tpu/crypto/tpu/sha256.py _make_kernel (an XLA graph
-// that unrolls 64 rounds per block over the whole batch and masks each
-// block with where(nblk > t, new, state)).
+// B8: batched SHA-256 of messages packed end to end in one byte buffer,
+// (total,) bytes + (n + 1,) int64 offsets -> (n, 32) digest bytes.
+// Replaces tendermint_tpu/crypto/tpu/sha256.py:107 _make_kernel (jitted at
+// :156), an XLA graph over host-padded (bucket, T, 16) word arrays that
+// unrolls 64 rounds per block over the whole bucket and masks each block
+// with where(nblk > t, new, state). The TPU needed static shapes, so the
+// reference pads every message on the host to a power-of-two block count
+// and the batch to a bucket of at most 4,096, and launches once a bucket.
+// This kernel pads and packs on the card instead: one launch hashes the
+// whole batch, and the host only joins the messages and writes the offsets.
 //
-// Bound on an H100 by 32-bit integer operations: a block is 64 rounds of
-// 14 instructions and 48 schedule words of 10 (logic of three inputs is
-// one LOP3, a sum of three one IADD3, a rotation one SHF), against 64
-// bytes read.
-// Each round depends on the one before, so one message is one serial
-// chain: one thread per message, the eight state words and a rolling
-// 16-word schedule in registers (the rounds are unrolled, so every
-// schedule index is known to the compiler), rotations as funnel shifts,
-// the round constants in constant memory. A thread absorbs its blocks
-// t < nblk[i] and stops: a masked block leaves the state unchanged, so
-// this equals the reference's where(). Words arrive as int32 tensors that
-// hold the uint32 bit patterns and are read 16 bytes at a time.
+// What bounds it on an H100: 32-bit integer issue. A block is 64 rounds of
+// 14 instructions and 48 schedule words of 10 (logic of three inputs is one
+// LOP3, a sum of three one IADD3, a rotation one SHF) against 64 bytes
+// read, and the INT32 pipe of an SM partition takes a warp instruction
+// every two cycles. The rounds of a message are one dependent chain, so one
+// thread hashes one message and its time is one thread's chain: at least
+// the cycles of a block, alone on its partition, times its blocks. A lone
+// warp already issues at about its partition's INT32 rate, so a batch
+// reaches the card's rate with a warp on every partition of every SM: a
+// thread block is one warp of 32 messages, so 4,224 messages put a warp on
+// each of the 132 SMs and 16,896 one on each of their 528 partitions.
 //
-// A simple kernel: with 128 threads a block, B = 4,096 fills 32 of the
-// 132 SMs, one warp per scheduler. More messages in flight per SM, or a
-// message spread over a warp, are later work.
+// The design:
+//  - Staging. A thread block copies its 32 messages' contiguous bytes, the
+//    span rounded out to 16-byte alignment at both ends, into shared memory
+//    with cp.async 16-byte copies, all in flight at once and coalesced (a
+//    warp reads 512 consecutive bytes a step); the last partial 16 bytes of
+//    the buffer are copied in part and zero-filled. Offsets are arbitrary,
+//    so a message's first byte sits at any alignment.
+//  - Padding on the card. Each thread reads its message's words from shared
+//    memory, two aligned words and one PRMT (__byte_perm) per big-endian
+//    word whatever the alignment; the block holding the end of the message
+//    gets the 0x80 byte at `len`, zeros, and, in the last of its
+//    (len + 8) / 64 + 1 blocks, the 64-bit big-endian bit length.
+//  - Rounds as in the reference's graph: the state and a rolling 16-word
+//    schedule in registers, the rounds unrolled (every schedule index known
+//    to the compiler), rotations as funnel shifts, the round constants in
+//    constant memory; each message stops at its own block count.
+//  - The digest words are byte-swapped on the card and stored as 32 bytes
+//    a message, so the host copies the digests out as they are.
+// The next block's words are not read ahead: they come from shared memory
+// (tens of cycles, against thousands for a block's rounds).
 #include "launch.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+// messages a thread block hashes, one a thread: one warp
+constexpr int kMsgs = 32;
+// the longest message: 8 padded blocks less the 0x80 byte and the length
+constexpr int kMaxBytes = 8 * 64 - 9;
 
 __constant__ unsigned kRound[64] = {
     0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu, 0x59F111F1u,
@@ -42,26 +66,52 @@ __constant__ unsigned kRound[64] = {
 
 __device__ __forceinline__ unsigned rotr(unsigned x, int n) { return __funnelshift_r(x, x, n); }
 
-__global__ void __launch_bounds__(kThreads)
-sha256_batch_kernel(const uint4* __restrict__ words, const int* __restrict__ nblk,
-                    uint4* __restrict__ out, long long b, int t) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= b) return;
-  unsigned h[8] = {0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au,
-                   0x510E527Fu, 0x9B05688Cu, 0x1F83D9ABu, 0x5BE0CD19u};
-  const int n = min(nblk[i], t);
-  const uint4* src = words + i * t * 4;
-  for (int blk = 0; blk < n; ++blk) {
+// The digest state of the message of `len` bytes (at most kMaxBytes) whose
+// first byte is byte `start` of the staged bytes `stage` (shared memory,
+// read as 32-bit words; at least 4 bytes past the message's last word are
+// readable).
+__device__ __forceinline__ void hash_message(const unsigned* stage, int start, int len,
+                                             unsigned h[8]) {
+  h[0] = 0x6A09E667u;
+  h[1] = 0xBB67AE85u;
+  h[2] = 0x3C6EF372u;
+  h[3] = 0xA54FF53Au;
+  h[4] = 0x510E527Fu;
+  h[5] = 0x9B05688Cu;
+  h[6] = 0x1F83D9ABu;
+  h[7] = 0x5BE0CD19u;
+  const unsigned* src = stage + (start >> 2);
+  // PRMT selector: the four bytes from byte (start & 3) of two aligned
+  // words, the first in the top byte (a big-endian word)
+  const unsigned skew = (unsigned)start & 3u;
+  const unsigned sel = (skew << 12) | ((skew + 1) << 8) | ((skew + 2) << 4) | (skew + 3);
+  const int nb = (len + 8) / 64 + 1;
+  for (int blk = 0; blk < nb; ++blk) {
+    const unsigned* p = src + 16 * blk;
+    const int left = len - 64 * blk;  // message bytes from this block's first byte on
     unsigned w[16];
+    if (left >= 64) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint4 v = src[blk * 4 + q];
-      w[4 * q] = v.x;
-      w[4 * q + 1] = v.y;
-      w[4 * q + 2] = v.z;
-      w[4 * q + 3] = v.w;
+      for (int j = 0; j < 16; ++j) w[j] = __byte_perm(p[j], p[j + 1], sel);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int rem = left - 4 * j;  // message bytes from this word's first byte on
+        unsigned v = rem > 0 ? __byte_perm(p[j], p[j + 1], sel) : 0u;
+        if (rem < 4) {
+          // keep the message's bytes, then 0x80, then zeros
+          const unsigned keep = rem > 0 ? 0xFFFFFFFFu << (32 - 8 * rem) : 0u;
+          v = (v & keep) | (rem >= 0 ? 0x80000000u >> (8 * rem) : 0u);
+        }
+        w[j] = v;
+      }
+      if (blk == nb - 1) {
+        w[14] = 0u;  // len < 2^29: the bit length's high word
+        w[15] = (unsigned)len << 3;
+      }
     }
-    unsigned a = h[0], bb = h[1], c = h[2], d = h[3], e = h[4], f = h[5], g = h[6], hh = h[7];
+    unsigned a = h[0], bb = h[1], c = h[2], d = h[3];
+    unsigned e = h[4], f = h[5], g = h[6], hh = h[7];
 #pragma unroll
     for (int r = 0; r < 64; ++r) {
       if (r >= 16) {
@@ -70,10 +120,10 @@ sha256_batch_kernel(const uint4* __restrict__ words, const int* __restrict__ nbl
         const unsigned s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
         w[r & 15] += s0 + w[(r - 7) & 15] + s1;
       }
-      const unsigned s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+      const unsigned e1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
       const unsigned ch = (e & f) ^ (~e & g);
-      const unsigned t1 = hh + s1 + ch + kRound[r] + w[r & 15];
-      const unsigned s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+      const unsigned t1 = hh + e1 + ch + kRound[r] + w[r & 15];
+      const unsigned e0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
       const unsigned maj = (a & bb) ^ (a & c) ^ (bb & c);
       hh = g;
       g = f;
@@ -82,7 +132,7 @@ sha256_batch_kernel(const uint4* __restrict__ words, const int* __restrict__ nbl
       d = c;
       c = bb;
       bb = a;
-      a = t1 + s0 + maj;
+      a = t1 + e0 + maj;
     }
     h[0] += a;
     h[1] += bb;
@@ -93,20 +143,78 @@ sha256_batch_kernel(const uint4* __restrict__ words, const int* __restrict__ nbl
     h[6] += g;
     h[7] += hh;
   }
-  out[2 * i] = make_uint4(h[0], h[1], h[2], h[3]);
-  out[2 * i + 1] = make_uint4(h[4], h[5], h[6], h[7]);
+}
+
+__device__ __forceinline__ unsigned bswap(unsigned x) { return __byte_perm(x, 0u, 0x0123); }
+
+__device__ __forceinline__ void store_digest(uint4* out, const unsigned h[8]) {
+  out[0] = make_uint4(bswap(h[0]), bswap(h[1]), bswap(h[2]), bswap(h[3]));
+  out[1] = make_uint4(bswap(h[4]), bswap(h[5]), bswap(h[6]), bswap(h[7]));
+}
+
+__global__ void __launch_bounds__(kMsgs)
+sha256_bytes_kernel(const unsigned char* __restrict__ buf, long long total,
+                    const long long* __restrict__ offsets, uint4* __restrict__ out, long long n) {
+  extern __shared__ __align__(16) uint4 stage[];
+  const long long first = (long long)blockIdx.x * kMsgs;
+  const long long i = first + threadIdx.x;
+  const long long lo = offsets[first] & ~15LL;
+  const long long hi = offsets[min(n, first + kMsgs)];
+  const int chunks = (int)((hi - lo + 15) >> 4);
+  for (int c = threadIdx.x; c < chunks; c += kMsgs) {
+    const long long at = lo + 16LL * c;
+    cp_async16_part(stage + c, buf + at, (int)min(16LL, total - at));
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (i >= n) return;
+  const long long start = offsets[i];
+  unsigned h[8];
+  hash_message(reinterpret_cast<const unsigned*>(stage), (int)(start - lo),
+               (int)(offsets[i + 1] - start), h);
+  store_digest(out + 2 * i, h);
+}
+
+// One message hashed by one thread alone on the card, its block loop timed
+// by the SM's cycle counter: the serial chain one message costs.
+__global__ void sha256_cycles_kernel(const unsigned char* __restrict__ msg, int len,
+                                     uint4* __restrict__ out, long long* __restrict__ cycles) {
+  __shared__ __align__(16) unsigned char stage[kMaxBytes + 25];
+  for (int k = 0; k < len; ++k) stage[k] = msg[k];
+  __syncthreads();
+  unsigned h[8];
+  const long long t0 = clock64();
+  hash_message(reinterpret_cast<const unsigned*>(stage), 0, len, h);
+  const long long t1 = clock64();
+  store_digest(out, h);
+  cycles[0] = t1 - t0;
 }
 
 }  // namespace
 
-// words: (b, t, 16) 32-bit words, 16-byte aligned; nblk: (b,) int32;
-// out: (b, 8) 32-bit words.
-extern "C" int sha256_batch_launch(const void* words, const void* nblk, void* out, long long b,
-                                   int t, int device, void* stream) {
+// buf: `total` bytes, 16-byte aligned; offsets: (n + 1,) int64, message k
+// is bytes [offsets[k], offsets[k + 1]) of buf, each at most 503 bytes (the
+// caller checks); out: (n, 32) bytes, 16-byte aligned; smem: the shared
+// bytes a thread block stages, at least its 32 messages' span rounded out
+// to 16 bytes at both ends, plus 16.
+extern "C" int sha256_bytes_launch(const void* buf, long long total, const void* offsets,
+                                   void* out, long long n, int smem, int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  unsigned blocks = (unsigned)((b + kThreads - 1) / kThreads);
-  sha256_batch_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)words, (const int*)nblk, (uint4*)out, b, t);
+  unsigned blocks = (unsigned)((n + kMsgs - 1) / kMsgs);
+  sha256_bytes_kernel<<<blocks, kMsgs, smem, (cudaStream_t)stream>>>(
+      (const unsigned char*)buf, total, (const long long*)offsets, (uint4*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// msg: `len` bytes (at most 503); out: 32 bytes, 16-byte aligned; cycles:
+// one int64, the block loop's cycles.
+extern "C" int sha256_cycles_launch(const void* msg, int len, void* out, void* cycles,
+                                    int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  sha256_cycles_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      (const unsigned char*)msg, len, (uint4*)out, (long long*)cycles);
   return (int)cudaGetLastError();
 }

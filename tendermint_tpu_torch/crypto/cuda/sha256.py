@@ -2,32 +2,34 @@
 of tendermint_tpu/crypto/tpu/sha256.py, whose jitted XLA graph
 `_make_kernel` becomes the hand-written kernel B8, csrc/sha256.cu).
 
-One kernel launch hashes a whole bucket of independent messages: one
-thread per message runs the compression function over its own blocks.
-Merkle work is uniform — `0x01||left||right` inner nodes are 65 bytes (2
-blocks) and leaves cluster by size — which is what makes fixed-shape
-buckets pay.
+The batch travels as it is: the messages' bytes joined end to end in one
+uint8 buffer and n + 1 int64 offsets (message k is bytes
+[offsets[k], offsets[k + 1])). One launch hashes the whole batch: the
+kernel pads each message itself (0x80, zeros, the bit length) and writes
+(n, 32) digest bytes in byte order. Messages are at most 503 bytes (eight
+padded blocks); longer ones (64 KiB block parts) are host work.
 
-Shape discipline (the reference's): messages are host-padded to a
-power-of-two block count (`block_bucket`, at most 8 blocks, so messages
-of at most 503 bytes) and the batch to the bucket ladder 16…4,096
-(`batch_bucket`); a message absorbs block t only while t is below its own
-padded block count, so one bucket mixes message sizes.
+`sha256_bytes(buf, offsets)` is the bytes-level entry. The offsets lie on
+the host, where they are checked (every message inside the buffer, none
+longer than 503 bytes) without reading the card. On a CUDA buffer it
+launches B8; on a CPU buffer it runs the plain version,
+`_sha256_bytes_plain`, which is the reference's own route: split the
+buffer, pack on the host with `prepare_hash_batch` at the reference's
+buckets (`batch_bucket`, at most 4,096 messages a chunk, and
+`block_bucket`), compress with `_sha256_plain` (the reference graph's
+arithmetic in int64 masked to 32 bits), then slice and byte-order. There
+is no fallback: on a CUDA buffer the kernel launches or the call raises.
+`sha256_batch` is the words-level plain compression on CPU tensors; it has
+no kernel of its own.
 
-Words travel as int32 tensors holding the uint32 bit patterns (the
-wrapper views the host's uint32 words, it converts no value). On a CUDA
-tensor `sha256_batch` launches the kernel; on a CPU tensor it runs the
-plain version `_sha256_plain`, which computes in int64 masked to 32 bits
-(PyTorch's CPU uint32 has no shifts to rely on). There is no fallback:
-a kernel that does not build or launch raises, and so does a message
-longer than the device unroll — the hub routes those to the host before
-it dispatches.
-
-With tracing on, `sha256_device` times its parts per chunk as `hash`
-spans: ``hash.prepare`` (`prepare_hash_batch`), ``hash.h2d`` (the copies
-in), ``hash.launch`` (`sha256_batch`: the launch, which returns before
-the kernel ends) and ``hash.d2h`` (the copy out, which waits for the
-kernel). With tracing off it reads no clock.
+`sha256_device(msgs, device=)` is what the HashHub calls: the lengths and
+offsets with numpy, one `bytearray.join` of the offsets and the messages,
+one copy in, one launch, one copy out. With tracing on it times its parts
+as `hash` spans, one set a call: ``hash.prepare`` (lengths, offsets, the
+join), ``hash.h2d`` (the copy in), ``hash.launch`` (`_bytes_cuda`, which
+returns before the kernel ends; on the CPU the plain version) and
+``hash.d2h`` (the copy out, which waits for the kernel, and the split into
+digests). With tracing off it reads no clock.
 """
 
 from __future__ import annotations
@@ -41,13 +43,16 @@ from ...device import DEFAULT_DEVICE, resolve
 from ...libs import trace
 from . import _build
 
-#: bucket ladder for the batch axis (messages per kernel launch)
+#: bucket ladder for the batch axis of the plain version (messages per
+#: chunk, the reference's)
 _MIN_BUCKET = 16
 _MAX_BUCKET = 4096
 #: largest padded block count the kernel absorbs (8 blocks = 512 bytes of
 #: padded message, i.e. messages up to 503 bytes). Longer messages (64 KiB
 #: block parts) are host work.
 _MAX_BLOCKS = 8
+#: messages a thread block of B8 hashes (csrc/sha256.cu kMsgs)
+_BLOCK_MSGS = 32
 
 _H0 = (
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -123,48 +128,142 @@ def prepare_hash_batch(
     return packed, nblk
 
 
-# -- B8: the batched compression -------------------------------------------
+def message_lengths(msgs: list[bytes]) -> np.ndarray:
+    """The messages' lengths as an int64 array."""
+    return np.fromiter(map(len, msgs), np.int64, len(msgs))
+
+
+def _check_lengths(lengths: np.ndarray) -> int:
+    """The longest message's length; the reference's ValueError on the
+    first message longer than the kernel takes."""
+    limit = max_device_bytes()
+    longest = int(lengths.max()) if lengths.size else 0
+    if longest > limit:
+        first = int(lengths[np.argmax(lengths > limit)])
+        raise ValueError(
+            f"message of {first} bytes exceeds the device unroll "
+            f"({limit} bytes) — host path required"
+        )
+    return longest
+
+
+def _stage_bytes(n: int, longest: int) -> int:
+    """Shared memory a thread block of B8 stages: its messages' span (at
+    most 32 of the longest message), rounded out to 16 bytes at both ends,
+    plus the 16 bytes a message's last word may read past it."""
+    return (min(n, _BLOCK_MSGS) * longest + 30) // 16 * 16 + 16
+
+
+# -- B8: the batch from its bytes ---------------------------------------------
 
 SHA256 = _build.Kernel(
-    "sha256_batch",
+    "sha256_bytes",
     "sha256",
-    [_build.P, _build.P, _build.P, _build.I64, _build.I32, _build.I32, _build.P],
+    [_build.P, _build.I64, _build.P, _build.P, _build.I64, _build.I32, _build.I32, _build.P],
     replaces="tendermint_tpu/crypto/tpu/sha256.py:107 (_make_kernel, jit :156)",
 )
 
 
+def sha256_bytes(buf: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Digests of the messages packed in `buf`, a 1-D uint8 tensor:
+    message k is bytes [offsets[k], offsets[k + 1]) of it, `offsets` a 1-D
+    int64 CPU tensor of n + 1 entries → (n, 32) uint8 digests on buf's
+    device. Raises ValueError on anything else: offsets that leave the
+    buffer or decrease, a message over 503 bytes (the reference's text),
+    and on the card a buffer that is not 16-byte aligned."""
+    if not isinstance(buf, torch.Tensor) or buf.dtype != torch.uint8 or buf.dim() != 1:
+        raise ValueError(f"expected a 1-D uint8 buffer, got {_describe(buf)}")
+    if (not isinstance(offsets, torch.Tensor) or offsets.dtype != torch.int64
+            or offsets.dim() != 1 or offsets.numel() < 1):
+        raise ValueError(f"expected 1-D int64 offsets, n + 1 of them, got {_describe(offsets)}")
+    if offsets.device.type != "cpu":
+        raise ValueError(f"offsets on {offsets.device}: they are checked on the host, "
+                         f"pass them as a CPU tensor")
+    off = offsets.numpy()
+    lengths = np.diff(off)
+    if off[0] < 0 or (lengths < 0).any() or off[-1] > buf.numel():
+        raise ValueError(f"offsets {off[0]}…{off[-1]} leave the {buf.numel()}-byte buffer "
+                         f"or decrease")
+    longest = _check_lengths(lengths)
+    if buf.device.type == "cuda":
+        return _bytes_cuda(buf, offsets.to(buf.device), _stage_bytes(lengths.size, longest))
+    if buf.device.type == "cpu":
+        return _sha256_bytes_plain(buf, offsets)
+    raise ValueError(f"no SHA-256 for tensors on {buf.device}")
+
+
+def _describe(t) -> str:
+    if isinstance(t, torch.Tensor):
+        return f"{t.dtype} {tuple(t.shape)} on {t.device}"
+    return type(t).__name__
+
+
+def _bytes_cuda(buf: torch.Tensor, offsets: torch.Tensor, stage_bytes: int) -> torch.Tensor:
+    """Launch B8 on checked operands: `offsets` on buf's card, `stage_bytes`
+    from `_stage_bytes` for these messages."""
+    if offsets.device != buf.device:
+        raise ValueError(f"offsets on {offsets.device}, bytes on {buf.device}")
+    buf, offsets = buf.contiguous(), offsets.contiguous()
+    if buf.data_ptr() % 16:
+        raise ValueError("the kernel reads the buffer 16 bytes at a time: align it to 16 bytes")
+    n = offsets.numel() - 1
+    out = torch.empty((n, 32), dtype=torch.uint8, device=buf.device)
+    if n:
+        SHA256(buf.data_ptr(), buf.numel(), offsets.data_ptr(), out.data_ptr(), n, stage_bytes,
+               *_build.stream_args(buf))
+    return out
+
+
+def _sha256_bytes_plain(buf: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """The plain version of B8, the reference's route: split the buffer,
+    pack each chunk of at most 4,096 messages with `prepare_hash_batch` at
+    the reference's buckets, compress with `_sha256_plain` on buf's device,
+    then keep the real rows and order the bytes. `offsets` on the host."""
+    off = offsets.tolist()
+    n = len(off) - 1
+    data = buf.cpu().numpy().tobytes()
+    msgs = [data[off[k] : off[k + 1]] for k in range(n)]
+    if not n:
+        return torch.empty((0, 32), dtype=torch.uint8, device=buf.device)
+    t_bucket = block_bucket(max(_padded_blocks(len(m)) for m in msgs))
+    states = []
+    for lo in range(0, n, _MAX_BUCKET):
+        chunk = msgs[lo : lo + _MAX_BUCKET]
+        packed, nblk = prepare_hash_batch(chunk, pad_to=batch_bucket(len(chunk)), block_pad=t_bucket)
+        words = torch.from_numpy(packed.view(np.int32)).to(buf.device)
+        counts = torch.from_numpy(nblk.view(np.int32)).to(buf.device)
+        states.append(_sha256_plain(words, counts)[: len(chunk)])
+    return _digest_bytes(torch.cat(states))
+
+
+def _digest_bytes(state: torch.Tensor) -> torch.Tensor:
+    """(B, 8) int32 state words → (B, 32) uint8 digests (big-endian)."""
+    w = state.to(torch.int64) & _M32
+    parts = torch.stack([(w >> 24) & 255, (w >> 16) & 255, (w >> 8) & 255, w & 255], dim=2)
+    return parts.reshape(-1, 32).to(torch.uint8)
+
+
+# -- the words-level plain compression ------------------------------------------
+
+
 def sha256_batch(blocks: torch.Tensor, nblk: torch.Tensor) -> torch.Tensor:
-    """Digest words of a bucket: `blocks` (B, T, 16) int32 (the uint32
-    big-endian words' bit patterns), `nblk` (B,) int32 block counts →
-    (B, 8) int32 state words. Message i absorbs blocks t < nblk[i]."""
+    """Digest words of a bucket on the CPU: `blocks` (B, T, 16) int32 (the
+    uint32 big-endian words' bit patterns), `nblk` (B,) int32 block counts
+    → (B, 8) int32 state words. Message i absorbs blocks t < nblk[i]. No
+    kernel computes this: on the card, hash bytes with `sha256_bytes`."""
     if blocks.dtype != torch.int32 or blocks.dim() != 3 or blocks.shape[2] != 16:
         raise ValueError(f"expected (B, T, 16) int32 words, got {blocks.dtype} {tuple(blocks.shape)}")
     if nblk.dtype != torch.int32 or nblk.shape != blocks.shape[:1]:
         raise ValueError(f"expected ({blocks.shape[0]},) int32 block counts, got {nblk.dtype} "
                          f"{tuple(nblk.shape)}")
-    if blocks.device.type == "cuda":
-        return _sha256_cuda(blocks, nblk)
-    if blocks.device.type == "cpu":
+    if blocks.device.type == "cpu" and nblk.device.type == "cpu":
         return _sha256_plain(blocks, nblk)
-    raise ValueError(f"no SHA-256 for tensors on {blocks.device}")
-
-
-def _sha256_cuda(blocks: torch.Tensor, nblk: torch.Tensor) -> torch.Tensor:
-    if nblk.device != blocks.device:
-        raise ValueError(f"block counts on {nblk.device}, words on {blocks.device}")
-    blocks, nblk = blocks.contiguous(), nblk.contiguous()
-    if blocks.data_ptr() % 16:
-        raise ValueError("the kernel reads the words 16 bytes at a time: align them to 16 bytes")
-    b, t = blocks.shape[:2]
-    out = torch.empty((b, 8), dtype=torch.int32, device=blocks.device)
-    if b:
-        SHA256(blocks.data_ptr(), nblk.data_ptr(), out.data_ptr(), b, t,
-               *_build.stream_args(blocks))
-    return out
+    raise ValueError(f"sha256_batch has no kernel (words on {blocks.device}): on the card, "
+                     f"hash the messages' bytes with sha256_bytes")
 
 
 def _sha256_plain(blocks: torch.Tensor, nblk: torch.Tensor) -> torch.Tensor:
-    """The plain version: the reference graph's arithmetic, vectorised
+    """The plain compression: the reference graph's arithmetic, vectorised
     over the batch, in int64 masked to 32 bits."""
     w_all = blocks.to(torch.int64) & _M32
     b, t_bucket = blocks.shape[:2]
@@ -193,48 +292,47 @@ def _sha256_plain(blocks: torch.Tensor, nblk: torch.Tensor) -> torch.Tensor:
     return torch.where(state >= 1 << 31, state - (1 << 32), state).to(torch.int32)
 
 
-def sha256_device(msgs: list[bytes], *, device=DEFAULT_DEVICE) -> list[bytes]:
-    """Hash every message in bucket-shaped launches of at most 4,096
-    messages on `device`. Raises ValueError on a message longer than
-    `max_device_bytes()` (the caller routes those to the host), and on
-    any kernel error."""
+# -- the HashHub's route ------------------------------------------------------------
+
+
+def sha256_device(msgs: list[bytes], *, device=DEFAULT_DEVICE,
+                  lengths: np.ndarray | None = None) -> list[bytes]:
+    """Hash every message on `device` in one launch. `lengths`, when the
+    caller has them, are `message_lengths(msgs)`. Raises ValueError on a
+    message longer than `max_device_bytes()` (the caller routes those to
+    the host), and on any kernel error."""
     dev = resolve(device)
     if not msgs:
         return []
-    limit = max_device_bytes()
-    nb_max = 1
-    for m in msgs:
-        if len(m) > limit:
-            raise ValueError(
-                f"message of {len(m)} bytes exceeds the device unroll "
-                f"({limit} bytes) — host path required"
-            )
-        nb = _padded_blocks(len(m))
-        if nb > nb_max:
-            nb_max = nb
-    t_bucket = block_bucket(nb_max)
     tracing = trace.is_enabled()
-    out: list[bytes] = []
-    for lo in range(0, len(msgs), _MAX_BUCKET):
-        chunk = msgs[lo : lo + _MAX_BUCKET]
-        b_bucket = batch_bucket(len(chunk))
-        t0 = time.perf_counter() if tracing else 0.0
-        packed, nblk = prepare_hash_batch(chunk, pad_to=b_bucket, block_pad=t_bucket)
-        if tracing:
-            t1 = time.perf_counter()
-            trace.emit("hash", "prepare", duration_s=t1 - t0, shape=(b_bucket, t_bucket))
-        words = torch.from_numpy(packed.view(np.int32)).to(dev)
-        counts = torch.from_numpy(nblk.view(np.int32)).to(dev)
-        if tracing:
-            t2 = time.perf_counter()
-            trace.emit("hash", "h2d", duration_s=t2 - t1)
-        state = sha256_batch(words, counts)
-        if tracing:
-            t3 = time.perf_counter()
-            trace.emit("hash", "launch", duration_s=t3 - t2)
-        state = state.cpu().numpy()
-        if tracing:
-            trace.emit("hash", "d2h", duration_s=time.perf_counter() - t3)
-        digests = state[: len(chunk)].view(np.uint32).astype(">u4").tobytes()
-        out.extend(digests[i * 32 : (i + 1) * 32] for i in range(len(chunk)))
+    t0 = time.perf_counter() if tracing else 0.0
+    if lengths is None:
+        lengths = message_lengths(msgs)
+    longest = _check_lengths(lengths)
+    n = len(msgs)
+    # one host buffer: the n + 1 offsets, padded to 16 bytes, then the
+    # messages end to end
+    head = (8 * (n + 1) + 15) // 16 * 16
+    offsets = np.zeros(head // 8, np.int64)
+    np.cumsum(lengths, out=offsets[1 : n + 1])
+    packed = bytearray().join([offsets.tobytes(), *msgs])
+    if tracing:
+        t1 = time.perf_counter()
+        trace.emit("hash", "prepare", duration_s=t1 - t0, n=n, bytes=len(packed) - head)
+    on_card = torch.frombuffer(packed, dtype=torch.uint8).to(dev)
+    if tracing:
+        t2 = time.perf_counter()
+        trace.emit("hash", "h2d", duration_s=t2 - t1)
+    dev_offsets = on_card[: 8 * (n + 1)].view(torch.int64)
+    buf = on_card[head:]
+    if dev.type == "cuda":
+        digests = _bytes_cuda(buf, dev_offsets, _stage_bytes(n, longest))
+    else:
+        digests = _sha256_bytes_plain(buf, dev_offsets)
+    if tracing:
+        t3 = time.perf_counter()
+        trace.emit("hash", "launch", duration_s=t3 - t2)
+    out = digests.cpu().numpy().view("V32").ravel().tolist()
+    if tracing:
+        trace.emit("hash", "d2h", duration_s=time.perf_counter() - t3)
     return out

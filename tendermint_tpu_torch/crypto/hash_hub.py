@@ -16,7 +16,8 @@ app-hash trees, validator-set hashes — goes through `sha256_many` /
     loop) unless the device route is switched on with
     `use_device(device)`: then a batch of at least `MIN_DEVICE_BATCH`
     messages, each at most 503 bytes, hashes through the SHA-256 kernel
-    B8 (crypto/cuda/sha256.py) on that device — the reference's opt-in
+    B8 (crypto/cuda/sha256.py) on that device, in one launch that pads
+    the messages on the card — the reference's opt-in
     `TMTPU_HASH_TPU=1`, as a runtime switch like `merkle.use_hashhub`.
     Narrower batches and longer messages hash on the host, as in the
     reference; `STATS` counts both routes. There is no breaker and no
@@ -53,12 +54,14 @@ LANE_LIGHT = "light"
 _LANES = (LANE_BUILD, LANE_VERIFY, LANE_LIGHT)
 
 #: the device route engages only for batches at least this wide: the
-#: reference's default (TMTPU_MIN_HASH_BATCH), kept as it is. It is not
-#: a measured crossover: on an NVIDIA H100 80GB HBM3 at 700 W the route
-#: lost to the hashlib loop at every width measured so far
-#: (chip_smoke.py phase 16, 64 to 16,384 leaves). Wide batches also
-#: emit a `hash.batch` span when tracing is on (a span per narrow tree
-#: level would cost more than the hashing and flood the ring)
+#: reference's default (TMTPU_MIN_HASH_BATCH), kept as it is. Measured on
+#: an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 16, widths 16
+#: to 16,384 in powers of two), the route lost to the hashlib loop at 256
+#: messages and won from 512, for 251-byte leaves and for 65-byte inner
+#: nodes alike: a call costs ~0.1-0.2 ms of fixed host work (two copies,
+#: a launch, the join and the split) before its ~0.2-0.3 us a message. Wide
+#: batches also emit a `hash.batch` span when tracing is on (a span per
+#: narrow tree level would cost more than the hashing and flood the ring)
 MIN_DEVICE_BATCH = 256
 
 #: per-lane and global counters; plain dict with unlocked += on the hot
@@ -129,10 +132,10 @@ def _device_many(msgs: list[bytes], dev) -> list[bytes] | None:
     are host work). A device error raises."""
     from .cuda import sha256 as dev_sha
 
-    limit = dev_sha.max_device_bytes()
-    if any(len(m) > limit for m in msgs):
+    lengths = dev_sha.message_lengths(msgs)
+    if int(lengths.max()) > dev_sha.max_device_bytes():
         return None
-    out = dev_sha.sha256_device(msgs, device=dev)
+    out = dev_sha.sha256_device(msgs, device=dev, lengths=lengths)
     STATS["device_batches"] += 1
     STATS["device_messages"] += len(msgs)
     return out

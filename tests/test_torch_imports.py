@@ -61,7 +61,7 @@ def test_whole_port_imports_with_jax_blocked():
         "    importlib.import_module(m)\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "from tendermint_tpu_torch.crypto.cuda import _build\n"
-        "assert sorted(_build.KERNELS) == ['bls_final_exp', 'bls_miller', 'fe_mul', 'fe_pow22523', 'scan_blocks', 'sha256_batch']\n"
+        "assert sorted(_build.KERNELS) == ['bls_final_exp', 'bls_miller', 'fe_mul', 'fe_pow22523', 'scan_blocks', 'sha256_bytes']\n"
         "assert not _build._libs and all(k.launches == 0 for k in _build.KERNELS.values())\n"
         "print('ok', len(sys.modules))\n"
     )

@@ -18,9 +18,12 @@ bls_miller, K7b bls_final_exp) run on pairing buckets of real pairs and
 of p - 1 in every input with zero lines and pad pairs; K7b is also held
 against bls_math.final_exp, and on an item whose product is zero. The
 pairing buckets include the paths' own, (2, 256) and (128, 2). B8
-(sha256_batch) runs at every bucket shape, T in {1, 2, 4, 8} blocks by
-B in {16, 256, 4,096} messages, on lengths across the padding edges, and
-is held against hashlib too.
+(sha256_bytes) runs on 1 to 16,384 messages (around its 32 a thread
+block and the reference's buckets) of lengths across the padding edges
+mixed in each launch, packed after a prefix of n % 16 bytes so that
+messages start at every alignment, and is held against hashlib too; it
+refuses a misaligned buffer, and the words-level `sha256_batch` has no
+kernel.
 """
 
 import numpy as np
@@ -346,32 +349,41 @@ def test_bls_verify_items_on_card_matches_cpu(card):
 
 # -- B8: SHA-256 -----------------------------------------------------------------
 
-SHA_EDGES = (0, 1, 55, 56, 63, 64, 65, 119, 120, 250, 503)
+SHA_EDGES = (0, 1, 55, 56, 63, 64, 65, 119, 120, 250, 251, 503)
 
 
-@pytest.mark.parametrize("t", [1, 2, 4, 8])
-@pytest.mark.parametrize("b", [16, 256, 4096])
-def test_sha256_kernel_equals_plain_and_hashlib(card, t, b):
-    """B8 at every bucket shape, the padding edges mixed in one bucket,
-    against its plain version (torch.equal) and hashlib."""
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 255, 256, 257, 4095, 4096, 4097, 16384])
+def test_sha256_kernel_equals_plain_and_hashlib(card, n):
+    """B8 in one launch, the padding edges mixed in the batch after n % 16
+    bytes, against its plain version (torch.equal) and hashlib."""
     import hashlib
 
     from tendermint_tpu_torch.crypto.cuda import sha256 as S
 
-    lens = [n for n in SHA_EDGES if S._padded_blocks(n) <= t]
-    rng = np.random.default_rng(t * b)
-    msgs = [rng.integers(0, 256, lens[i % len(lens)], dtype=np.uint8).tobytes()
-            for i in range(b - 3)]
-    packed, nblk = S.prepare_hash_batch(msgs, pad_to=b, block_pad=t)
-    words = torch.from_numpy(packed.view(np.int32)).to(card)
-    counts = torch.from_numpy(nblk.view(np.int32)).to(card)
+    lens = SHA_EDGES[n % len(SHA_EDGES):] + SHA_EDGES[: n % len(SHA_EDGES)]
+    rng = np.random.default_rng(n)
+    msgs = [rng.integers(0, 256, lens[i % len(lens)], dtype=np.uint8).tobytes() for i in range(n)]
+    prefix = n % 16
+    buf = torch.frombuffer(bytearray(bytes(prefix) + b"".join(msgs)), dtype=torch.uint8).to(card)
+    offsets = torch.from_numpy(np.cumsum([prefix] + [len(m) for m in msgs]).astype(np.int64))
     before = S.SHA256.launches
-    got = S.sha256_batch(words, counts)
+    got = S.sha256_bytes(buf, offsets)
     assert S.SHA256.launches == before + 1
-    assert torch.equal(got, S._sha256_plain(words, counts))
-    digests = got.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
-    assert all(digests[32 * i : 32 * i + 32] == hashlib.sha256(m).digest()
-               for i, m in enumerate(msgs))
+    assert torch.equal(got, S._sha256_bytes_plain(buf, offsets))
+    assert [bytes(row) for row in got.cpu().numpy()] == [hashlib.sha256(m).digest() for m in msgs]
+
+
+def test_sha256_bytes_refuses_a_misaligned_buffer_and_words(card):
+    from tendermint_tpu_torch.crypto.cuda import sha256 as S
+
+    buf = torch.zeros(64, dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="align it to 16 bytes"):
+        S.sha256_bytes(buf[1:], torch.tensor([0, 10], dtype=torch.int64))
+    with pytest.raises(ValueError, match="checked on the host"):
+        S.sha256_bytes(buf, torch.tensor([0, 10], dtype=torch.int64, device=card))
+    with pytest.raises(ValueError, match="sha256_bytes"):
+        S.sha256_batch(torch.zeros((16, 1, 16), dtype=torch.int32, device=card),
+                       torch.zeros(16, dtype=torch.int32, device=card))
 
 
 def test_sha256_device_on_card_and_its_limit(card):
