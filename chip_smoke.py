@@ -162,8 +162,10 @@ failure exits non-zero, nothing is caught and carried past):
      hashlib loop for 251-byte leaves and 65-byte nodes; B8 gets `kernels`
      rows at 16,384 x 251, 8,192 x 65 and 4,096 x 251 bytes, each bound by
      the largest of its bytes, its int32 instructions at the card's int32
-     rate, and its serial chain (a block's cycles, one thread alone on the
-     card timed by clock64, x the message's blocks / clocks.max.sm);
+     rate, and its serial chain (the rounds' dependent chain, 193
+     instructions a block counted from the source, timed alone by one
+     thread with clock64, x the message's blocks / clocks.max.sm); what
+     one warp alone issues for a block is reported beside it;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
@@ -345,6 +347,13 @@ def _final_exp_cost(m: int, npairs: int, real: list) -> tuple[int, int]:
 INT32_LANES_PER_SM = 64
 H100_SMS = 132
 SHA256_BLOCK_OPS = 48 * 10 + 64 * 14 + 8
+#: the rounds' dependent chain, counted from csrc/sha256.cu: e's recurrence
+#: e' = (d + h + K + W) + Sigma1(e) + Ch(e, f, g), the bracket ready before
+#: e, is three dependent instructions a round (Sigma1's SHFs, their LOP3,
+#: the IADD3; Ch's LOP3 beside them); a's is no longer. 64 rounds and the
+#: add into the state a block.
+SHA256_ROUND_DEPTH = 3
+SHA256_BLOCK_DEPTH = 64 * SHA256_ROUND_DEPTH + 1
 #: SASS opcodes counted as integer work (moves, loads, stores, compares
 #: and branches are left out)
 _SASS_INT_OPS = {"LOP3", "LOP", "IADD3", "IADD", "SHF", "SHL", "SHR", "IMAD", "PRMT", "LEA"}
@@ -406,10 +415,13 @@ def _int32_ops_per_s() -> float:
 
 
 def _block_cycles(dev, reps: int = 5) -> dict:
-    """B8's serial chain: one message hashed by one thread alone on the
-    card (csrc/sha256.cu's sha256_cycles_kernel), its block loop timed by
-    clock64, at 55 bytes (one block) and 503 (eight); the least of `reps`
-    launches each. A block costs the difference over seven."""
+    """B8's cycles a block, by one thread alone on the card
+    (csrc/sha256.cu's sha256_cycles_kernel, timed by clock64), the least
+    of `reps` launches at 55 bytes (one block) and 503 (eight): what one
+    warp issues for a block (its block loop, the difference over seven),
+    and the rounds' dependent chain alone (eight blocks of 64 rounds of
+    SHA256_ROUND_DEPTH dependent instructions and the add into the
+    state), the serial-chain bound's cycles a block."""
     import ctypes
 
     import torch
@@ -423,20 +435,25 @@ def _block_cycles(dev, reps: int = 5) -> dict:
     msg = bytes((7 * j + 3) % 256 for j in range(503))
     src = torch.frombuffer(bytearray(msg), dtype=torch.uint8).to(dev)
     out = torch.empty(32, dtype=torch.uint8, device=dev)
-    clk = torch.zeros(1, dtype=torch.int64, device=dev)
-    least = {}
+    clk = torch.zeros(3, dtype=torch.int64, device=dev)
+    least, chain = {}, []
     for n in (55, 503):
         runs = []
         for _ in range(reps):
             if fn(src.data_ptr(), n, out.data_ptr(), clk.data_ptr(), *_build.stream_args(src)):
                 raise RuntimeError("sha256_cycles_kernel failed to launch")
             torch.cuda.synchronize()
-            runs.append(int(clk.item()))
+            loop, rounds, _ = clk.tolist()
+            runs.append(loop)
+            chain.append(rounds)
             if bytes(out.cpu().tolist()) != hashlib.sha256(msg[:n]).digest():
                 raise AssertionError(f"sha256_cycles_kernel ({n} bytes): digest differs from hashlib")
         least[n] = min(runs)
-    return {"cycles_1_block": least[55], "cycles_8_blocks": least[503],
-            "cycles_per_block": (least[503] - least[55]) / 7}
+    chain_block = min(chain) / 8
+    return {"one_warp_cycles_1_block": least[55], "one_warp_cycles_8_blocks": least[503],
+            "one_warp_cycles_per_block": (least[503] - least[55]) / 7,
+            "chain_cycles_per_block": chain_block, "chain_depth_per_block": SHA256_BLOCK_DEPTH,
+            "cycles_per_dependent_instruction": chain_block / SHA256_BLOCK_DEPTH}
 
 
 def _bound(n_bytes: float, n_ops: float, ops_per_s: float = CORE_OPS_PER_S) -> tuple[float, str]:
@@ -548,11 +565,8 @@ def _hold(kernel, what, run, plain) -> int:
     return int((got - want).abs().max().item())
 
 
-def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps, ops_per_s=CORE_OPS_PER_S,
-                plain_reps=None, plain_profile=True) -> dict:
-    """A `kernels` row: held against the plain version, then timed (the
-    plain version over `plain_reps` calls, reps // 5 by default, and
-    profiled unless `plain_profile` is False)."""
+def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps, ops_per_s=CORE_OPS_PER_S) -> dict:
+    """A `kernels` row: held against the plain version, then timed."""
     err = _hold(kernel, f"m={m}", run, plain)
     bound_ms, bound_by = _bound(n_bytes, n_ops, ops_per_s)
     # the kernel alone on the card (profiler), three repeats
@@ -561,7 +575,7 @@ def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps, ops_per_s=CORE_OPS_
     measured = sorted(r for r in repeats if r is not None)
     ms = measured[len(measured) // 2] if measured else None
     wrapper_ms = sorted(wrappers)[1]
-    plain_ms = _time_ms(plain, plain_reps or max(1, reps // 5))
+    plain_ms = _time_ms(plain, max(1, reps // 5))
     return {
         "name": kernel.name,
         "m": m,
@@ -580,7 +594,7 @@ def _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps, ops_per_s=CORE_OPS_
         "wrapper_ms": wrapper_ms,
         "wrapper_ms_repeats": wrappers,
         "plain_ms": plain_ms,
-        "plain_device_ms": _device_ms(plain, 1) if plain_profile else None,
+        "plain_device_ms": _device_ms(plain, 1),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "bound_ops_per_s": ops_per_s,
@@ -2933,24 +2947,24 @@ def drive_sha256(dev) -> tuple[dict, list]:
     # the B8 rows: the 250-byte leaves (251 with the prefix: 5 blocks) at
     # the 16,384-leaf level and at the old rows' 4,096, the 65-byte inner
     # nodes (2 blocks) at the 8,192-node level; the bound is the largest of
-    # the bytes, the int32 operations and the serial chain
+    # the bytes, the int32 instructions and the rounds' serial chain. The
+    # plain version takes 0.25-2 s a call here: 20 repeats time it 4 times.
     hz = _sm_max_hz()
     ops_per_s = _int32_ops_per_s()
     sass_ops = _sass_block_ops(S.SHA256.source)
     block_ops = min(SHA256_BLOCK_OPS, sass_ops or SHA256_BLOCK_OPS)
-    chain = _block_cycles(dev)
+    cycles = _block_cycles(dev)
     rows = []
-    for n, length, reps in ((16384, 251, 200), (8192, 65, 200), (4096, 251, 200)):
+    for n, length in ((16384, 251), (8192, 65), (4096, 251)):
         _msgs, buf, offsets = _sha_batch(dev, n, [length], 0, seed=length)
         blocks = S._padded_blocks(length)
         n_bytes = buf.numel() + 8 * (n + 1) + 32 * n
         row = _kernel_row(S.SHA256, n, lambda b=buf, o=offsets: S.sha256_bytes(b, o),
                           lambda b=buf, o=offsets: S._sha256_bytes_plain(b, o),
-                          n_bytes, n * blocks * block_ops, reps, ops_per_s=ops_per_s,
-                          plain_reps=1, plain_profile=False)
-        serial_ms = chain["cycles_per_block"] * blocks / hz * 1e3
+                          n_bytes, n * blocks * block_ops, 20, ops_per_s=ops_per_s)
         bounds = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
-                  "int32": n * blocks * block_ops / ops_per_s * 1e3, "serial_chain": serial_ms}
+                  "int32": n * blocks * block_ops / ops_per_s * 1e3,
+                  "serial_chain": cycles["chain_cycles_per_block"] * blocks / hz * 1e3}
         kind = max(bounds, key=bounds.get)
         row["bound_ms"] = bounds[kind]
         row["bound_by"] = "bytes" if kind == "bytes" else "operations"
@@ -2961,14 +2975,16 @@ def drive_sha256(dev) -> tuple[dict, list]:
         row["message_bytes"] = length
         row["real_blocks"] = n * blocks
         row["ops_per_block"] = {"counted": SHA256_BLOCK_OPS, "sass": sass_ops, "bound": block_ops}
-        row["serial_chain"] = dict(chain, sm_max_hz=hz, blocks=blocks)
+        row["block_cycles"] = dict(cycles, sm_max_hz=hz, blocks=blocks)
+        # what one warp alone issues for a message's blocks: not a bound
+        row["one_warp_ms"] = cycles["one_warp_cycles_per_block"] * blocks / hz * 1e3
         row["bound_rate"] = (f"int32: {H100_SMS} SMs x {INT32_LANES_PER_SM} lanes x clocks.max.sm "
                              f"= {ops_per_s:.4g} op/s")
         row["launches"] = launches[S.SHA256.name]
         row["path"] = MERKLE_PATH
         rows.append(row)
     return {"held": held, "over_limit": over_limit, "leaves": leaves_rows, "launches": launches,
-            "device_split": split, "crossover": crossover, "serial_chain": chain}, rows
+            "device_split": split, "crossover": crossover, "block_cycles": cycles}, rows
 
 
 def main() -> int:

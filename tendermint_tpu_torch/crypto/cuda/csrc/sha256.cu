@@ -9,17 +9,23 @@
 // This kernel pads and packs on the card instead: one launch hashes the
 // whole batch, and the host only joins the messages and writes the offsets.
 //
-// What bounds it on an H100: 32-bit integer issue. A block is 64 rounds of
-// 14 instructions and 48 schedule words of 10 (logic of three inputs is one
-// LOP3, a sum of three one IADD3, a rotation one SHF) against 64 bytes
-// read, and the INT32 pipe of an SM partition takes a warp instruction
-// every two cycles. The rounds of a message are one dependent chain, so one
-// thread hashes one message and its time is one thread's chain: at least
-// the cycles of a block, alone on its partition, times its blocks. A lone
-// warp already issues at about its partition's INT32 rate, so a batch
-// reaches the card's rate with a warp on every partition of every SM: a
-// thread block is one warp of 32 messages, so 4,224 messages put a warp on
-// each of the 132 SMs and 16,896 one on each of their 528 partitions.
+// What bounds it on an H100: 32-bit integer issue and one message's
+// dependent chain. A block is 64 rounds of 14 instructions and 48 schedule
+// words of 10 (logic of three inputs is one LOP3, a sum of three one IADD3,
+// a rotation one SHF) against 64 bytes read: at the card's INT32 rate (132
+// SMs x 64 lanes) that is the throughput bound. The rounds of a message are
+// one dependent chain, e's recurrence e' = (d + h + K + W) + Sigma1(e) +
+// Ch(e, f, g), where the bracket does not wait on e: three dependent
+// instructions a round (Sigma1's rotations, their XOR, the sum), 64 rounds
+// and the add into the state a block. So a message takes at least its
+// blocks' chains, however many SMs are busy. One thread hashes one message,
+// and the SM partition that runs a warp issues an INT32 warp instruction
+// every two cycles, so a lone warp on its partition runs at about its
+// instruction count, not its chain: the card reaches its INT32 rate only
+// with a warp on every partition of every SM. A thread block is one warp of
+// 32 messages, so 4,224 messages put a warp on each of the 132 SMs and
+// 16,896 one on each of their 528 partitions; narrower batches leave
+// partitions idle.
 //
 // The design:
 //  - Staging. A thread block copies its 32 messages' contiguous bytes, the
@@ -177,7 +183,12 @@ sha256_bytes_kernel(const unsigned char* __restrict__ buf, long long total,
 }
 
 // One message hashed by one thread alone on the card, its block loop timed
-// by the SM's cycle counter: the serial chain one message costs.
+// by the SM's cycle counter (cycles[0]: what one warp issues for it); then
+// the rounds' dependent chain alone, timed the same way (cycles[1]): e's
+// recurrence e' = (d + h + K[r] + W[r]) + Sigma1(e) + Ch(e, f, g), with the
+// bracket, which does not wait on e, held in one register, 64 rounds and
+// the add into the state a block, eight blocks. cycles[2] keeps the chain's
+// end.
 __global__ void sha256_cycles_kernel(const unsigned char* __restrict__ msg, int len,
                                      uint4* __restrict__ out, long long* __restrict__ cycles) {
   __shared__ __align__(16) unsigned char stage[kMaxBytes + 25];
@@ -189,6 +200,26 @@ __global__ void sha256_cycles_kernel(const unsigned char* __restrict__ msg, int 
   const long long t1 = clock64();
   store_digest(out, h);
   cycles[0] = t1 - t0;
+  const long long t2 = clock64();
+  // the chain starts from the counter, so it cannot start before it
+  unsigned e = h[4] ^ ((unsigned)t2 & 1u), f = h[5], g = h[6];
+  const unsigned rest = h[7];
+#pragma unroll 1
+  for (int blk = 0; blk < 8; ++blk) {
+    const unsigned e_in = e;
+#pragma unroll
+    for (int r = 0; r < 64; ++r) {
+      const unsigned e1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+      const unsigned ch = (e & f) ^ (~e & g);
+      g = f;
+      f = e;
+      e = (rest + kRound[r]) + e1 + ch;
+    }
+    e += e_in;
+  }
+  // the store waits for the chain's end, the counter for the store
+  cycles[2] = e;
+  cycles[1] = clock64() - t2;
 }
 
 }  // namespace
@@ -209,7 +240,8 @@ extern "C" int sha256_bytes_launch(const void* buf, long long total, const void*
 }
 
 // msg: `len` bytes (at most 503); out: 32 bytes, 16-byte aligned; cycles:
-// one int64, the block loop's cycles.
+// three int64, the block loop's cycles, the eight blocks' chain's cycles
+// and the chain's end.
 extern "C" int sha256_cycles_launch(const void* msg, int len, void* out, void* cycles,
                                     int device, void* stream) {
   cudaError_t err = use_device(device);

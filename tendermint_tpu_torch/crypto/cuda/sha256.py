@@ -23,13 +23,14 @@ is no fallback: on a CUDA buffer the kernel launches or the call raises.
 no kernel of its own.
 
 `sha256_device(msgs, device=)` is what the HashHub calls: the lengths and
-offsets with numpy, one `bytearray.join` of the offsets and the messages,
-one copy in, one launch, one copy out. With tracing on it times its parts
-as `hash` spans, one set a call: ``hash.prepare`` (lengths, offsets, the
-join), ``hash.h2d`` (the copy in), ``hash.launch`` (`_bytes_cuda`, which
-returns before the kernel ends; on the CPU the plain version) and
-``hash.d2h`` (the copy out, which waits for the kernel, and the split into
-digests). With tracing off it reads no clock.
+offsets with numpy, one `bytearray.join` of the messages, one copy in, one
+`sha256_bytes` call (the offsets' check and copy, one launch), one copy
+out. With tracing on it times its parts as `hash` spans, one set a call:
+``hash.prepare`` (lengths, offsets, the join), ``hash.h2d`` (the copy in),
+``hash.launch`` (`sha256_bytes`, which returns before the kernel ends; on
+the CPU the plain version) and ``hash.d2h`` (the copy out, which waits for
+the kernel, and the split into digests). With tracing off it reads no
+clock.
 """
 
 from __future__ import annotations
@@ -199,10 +200,8 @@ def _describe(t) -> str:
 
 
 def _bytes_cuda(buf: torch.Tensor, offsets: torch.Tensor, stage_bytes: int) -> torch.Tensor:
-    """Launch B8 on checked operands: `offsets` on buf's card, `stage_bytes`
-    from `_stage_bytes` for these messages."""
-    if offsets.device != buf.device:
-        raise ValueError(f"offsets on {offsets.device}, bytes on {buf.device}")
+    """Launch B8 on the operands `sha256_bytes` checked: `offsets` copied to
+    buf's card, `stage_bytes` from `_stage_bytes` for these messages."""
     buf, offsets = buf.contiguous(), offsets.contiguous()
     if buf.data_ptr() % 16:
         raise ValueError("the kernel reads the buffer 16 bytes at a time: align it to 16 bytes")
@@ -297,10 +296,10 @@ def _sha256_plain(blocks: torch.Tensor, nblk: torch.Tensor) -> torch.Tensor:
 
 def sha256_device(msgs: list[bytes], *, device=DEFAULT_DEVICE,
                   lengths: np.ndarray | None = None) -> list[bytes]:
-    """Hash every message on `device` in one launch. `lengths`, when the
-    caller has them, are `message_lengths(msgs)`. Raises ValueError on a
-    message longer than `max_device_bytes()` (the caller routes those to
-    the host), and on any kernel error."""
+    """Hash every message on `device` in one `sha256_bytes` call. `lengths`,
+    when the caller has measured them, are `message_lengths(msgs)`. Raises
+    ValueError on a message longer than `max_device_bytes()` (the caller
+    routes those to the host), and on any kernel error."""
     dev = resolve(device)
     if not msgs:
         return []
@@ -308,27 +307,18 @@ def sha256_device(msgs: list[bytes], *, device=DEFAULT_DEVICE,
     t0 = time.perf_counter() if tracing else 0.0
     if lengths is None:
         lengths = message_lengths(msgs)
-    longest = _check_lengths(lengths)
-    n = len(msgs)
-    # one host buffer: the n + 1 offsets, padded to 16 bytes, then the
-    # messages end to end
-    head = (8 * (n + 1) + 15) // 16 * 16
-    offsets = np.zeros(head // 8, np.int64)
-    np.cumsum(lengths, out=offsets[1 : n + 1])
-    packed = bytearray().join([offsets.tobytes(), *msgs])
+    offsets = np.zeros(len(msgs) + 1, np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    joined = bytearray().join(msgs)
     if tracing:
         t1 = time.perf_counter()
-        trace.emit("hash", "prepare", duration_s=t1 - t0, n=n, bytes=len(packed) - head)
-    on_card = torch.frombuffer(packed, dtype=torch.uint8).to(dev)
+        trace.emit("hash", "prepare", duration_s=t1 - t0, n=len(msgs), bytes=len(joined))
+    buf = torch.frombuffer(joined, dtype=torch.uint8) if joined else torch.empty(0, dtype=torch.uint8)
+    buf = buf.to(dev)
     if tracing:
         t2 = time.perf_counter()
         trace.emit("hash", "h2d", duration_s=t2 - t1)
-    dev_offsets = on_card[: 8 * (n + 1)].view(torch.int64)
-    buf = on_card[head:]
-    if dev.type == "cuda":
-        digests = _bytes_cuda(buf, dev_offsets, _stage_bytes(n, longest))
-    else:
-        digests = _sha256_bytes_plain(buf, dev_offsets)
+    digests = sha256_bytes(buf, torch.from_numpy(offsets))
     if tracing:
         t3 = time.perf_counter()
         trace.emit("hash", "launch", duration_s=t3 - t2)

@@ -56,9 +56,10 @@ _LANES = (LANE_BUILD, LANE_VERIFY, LANE_LIGHT)
 #: the device route engages only for batches at least this wide: the
 #: reference's default (TMTPU_MIN_HASH_BATCH), kept as it is. Measured on
 #: an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 16, widths 16
-#: to 16,384 in powers of two), the route lost to the hashlib loop at 256
-#: messages and won from 512, for 251-byte leaves and for 65-byte inner
-#: nodes alike: a call costs ~0.1-0.2 ms of fixed host work (two copies,
+#: to 16,384 in powers of two), the route beat the hashlib loop from 512
+#: messages (from 256 for 251-byte leaves in one run of five), for
+#: 251-byte leaves and for 65-byte inner nodes alike, and lost below:
+#: a call costs ~0.1-0.2 ms of fixed host work (two copies,
 #: a launch, the join and the split) before its ~0.2-0.3 us a message. Wide
 #: batches also emit a `hash.batch` span when tracing is on (a span per
 #: narrow tree level would cost more than the hashing and flood the ring)

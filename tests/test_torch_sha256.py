@@ -356,3 +356,19 @@ def test_hub_hands_the_route_its_lengths(device_route, monkeypatch):
     msgs = _msgs([65] * 20 + [250] * 12 + [0])
     assert hub.sha256_many(msgs) == [hashlib.sha256(m).digest() for m in msgs]
     assert seen == [[65] * 20 + [250] * 12 + [0]]
+
+
+def test_sha256_device_goes_through_the_bytes_entry(monkeypatch):
+    """One `sha256_bytes` call a batch, its offsets on the host: the bytes
+    entry alone checks the batch and picks the kernel or the plain version."""
+    calls = []
+    entry = S.sha256_bytes
+    monkeypatch.setattr(S, "sha256_bytes",
+                        lambda buf, off: calls.append((buf.numel(), off.tolist())) or entry(buf, off))
+    msgs = [b"", b"abc", b"x" * 64]
+    assert S.sha256_device(msgs, device="cpu") == [hashlib.sha256(m).digest() for m in msgs]
+    assert calls == [(67, [0, 0, 3, 67])]
+
+
+def test_sha256_device_of_empty_messages_only():
+    assert S.sha256_device([b""] * 3, device="cpu") == [hashlib.sha256(b"").digest()] * 3
