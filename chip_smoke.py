@@ -166,23 +166,65 @@ failure exits non-zero, nothing is caught and carried past):
      instructions a block counted from the source, timed alone by one
      thread with clock64, x the message's blocks / clocks.max.sm); what
      one warp alone issues for a block is reported beside it;
+ 17. the light fleet (run after phase 16): bench.py's bench_light_fleet(150,
+     64, 6) on the port, per scheme — per_sig (150 ed25519 validators) and
+     bls_aggregate (150 bls12381 validators, every hop folded into its
+     aggregate), seeds b"lf-" + scheme, chains built on the host (seconds
+     printed) — under asyncio.wait_for and a LoopWatchdog: a cold
+     LightClient alone to height 6, then 64 concurrent LightD.sync(6) on one
+     LightD (LightDConfig(max_sessions=32)) on the card, then hop_proof(6).
+     Every client's block must be the chain's header at 6, hops_verified
+     equal in both schemes, and K7a and K7b launched by the aggregate
+     scheme's cold client and LightD; the per_sig scheme's routes are
+     printed, not asserted (a hop's 101 signatures are under the cutoff).
+     The served aggregate HopProof, carried by its bytes, is re-verified
+     through verify_hop_proof on the card in a fresh hub with the memos
+     cleared: each kernel launches once (the hop's second check of the same
+     aggregate is the hub's cached verdict); with one flipped aggregate bit
+     it must raise HopProofError with scheme "bls-aggregate". A LightD whose
+     primary is a LunaticProvider (height 6 forged by 51 colluders) and
+     whose witness is honest must raise Divergence, count one divergence
+     and report LightClientAttackEvidence that decodes back equal. Prints
+     the bench's fields per scheme (syncs/s, p50/p99, hit and shed rates,
+     amortization, sigs covered/s, wire bytes, chain build), the routes and
+     launches, and for the aggregate re-verification K7a/K7b device ms, the
+     idle share and the host split;
+ 18. BootFleet (run after phase 17): bench.py's bench_statesync_fleet(64,
+     21, 8) on the port — the join wave (testing.statesync_fleet_scenario:
+     8 cold joiners on one donor's BootD over the reactor protocol, every
+     reactor on the card, the 64-block donor chain of 21 validators built
+     on the host): all 8 must join with equal States; prints joiners/s,
+     chunks/s, p50/p99, sheds, the chunk cache's amortization and the
+     joiners' backfill signatures and routes. Then the backfill A/B over 64
+     validators through verify_backfill_batch on the card, the memos
+     cleared: the bench's 32 ed25519 heights (1,376 signatures under light
+     semantics; its route must be the cutoff's), 48 heights (2,064: the
+     route must be "cuda" and B1-B3 must launch), and 6 bls12381 heights
+     (cut from 32; 64 validators kept), each commit folded by
+     aggregate_commit: K7a and K7b must launch once a height at the (2,
+     128) bucket (profiled: device ms, idle share, host split). K7a and K7b
+     are then held torch.equal to their plain versions at every shape
+     phases 17-18 gave them (path and worst-case inputs), and each shape
+     phase 14 did not time gets a timed `kernels` row;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
      block-sync replay and its tampered pass (phase 12, two-chunk ranges
-     included) and the light paths (phase 13: the 13-chunk range, the
-     client's windows, the tampered range) gave B1, B2 and B3 is held
+     included), the light paths (phase 13: the 13-chunk range, the
+     client's windows, the tampered range) and the 48-height per-signature
+     backfill of phase 18 gave B1, B2 and B3 is held
      against the plain version with torch.equal, on the inputs the path
      gave and on worst-case inputs of the same shapes; phase 2's sizes
      must be sizes the main path gives; the largest size of each kernel
-     on the ed25519, sr25519, block-sync and light paths gets a timed
-     `kernels` row of its own.
+     on the ed25519, sr25519, block-sync and light paths and the 48-height
+     backfill gets a timed `kernels` row of its own.
 
 Each path's launch counts are set to 0 just before it and read just
 after (the block-sync reactor verifies in a worker thread; its launches
 count too). Prints the card's name and power limit, `breakdown`,
 `sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `light`, `bls`,
-`statesync`, `sha256`, `shapes`, `slice`, `kernels` and `script_wall_s`
+`statesync`, `sha256`, `light_fleet`, `statesync_fleet`,
+`fleet_pairing_shapes`, `shapes`, `slice`, `kernels` and `script_wall_s`
 JSON lines, and last {"ok": true,
 "device": {...}}. Imports nothing of JAX or of the JAX
 package. Build output goes to build/torch_ext/.
@@ -254,6 +296,28 @@ SS_TAMPER_HEIGHT = 30
 N_SS_BLS_HEIGHTS = 16
 SS_BLS_TAMPER_INDEX = 5
 SS_CHAIN_ID = "ss-bls-chain"
+# phase 17, bench.py's bench_light_fleet(150, 64, 6): 64 clients syncing to
+# height 6 through one LightD (LightDConfig(max_sessions=32)), per scheme:
+# per_sig (ed25519) and bls_aggregate (bls12381), seeds b"lf-" + scheme
+LF_VALS, LF_CLIENTS, LF_HEIGHTS = 150, 64, 6
+LF_SESSIONS = 32
+LF_CHAIN_ID = "lf-chain"
+LF_TIMEOUT_S = 420.0
+# the lunatic primary forges height 6; its colluders hold more than a
+# third of the power (51 of 150), so the forgery passes the trusting check
+LF_LUNATIC_SEED, LF_TRAITORS = 17, 51
+# phase 18, bench.py's bench_statesync_fleet(64, 21, 8): the join wave of 8
+# joiners on one donor, then the backfill A/B over 64 validators (seeds
+# b"ssab-" + scheme). A 32-height per-signature window tallies 43 of the 64
+# signatures a height (light semantics): 1,376, under the clamped cutoff
+# (2,048); the 48-height window (2,064) reaches it. The BLS half is cut
+# from 32 heights to 6, to keep phases 17-18 near 200 s: a height costs
+# ~3.5 s to sign (pure Python, ~55 ms a signature) and ~4.3 s to verify
+# (64 hash-to-curve calls and 65 line preparations on the host)
+SSF_BLOCKS, SSF_VALS, SSF_JOINERS = 64, 21, 8
+SSF_AB_VALS, SSF_AB_HEIGHTS, SSF_DEEP_HEIGHTS, SSF_BLS_HEIGHTS = 64, 32, 48, 6
+SSF_CHAIN_ID = "ssab-chain"
+SSF_TIMEOUT_S = 420.0
 # phase 16, bench.py's bench_merkle leaves half: 250-byte leaves
 MERKLE_LEAVES = (64, 1024, 16384)
 # phase 16's checks of B8: the batch widths (around its 32 messages a
@@ -1748,6 +1812,27 @@ def _resign_light(lb, keys, **header_fields):
     return LightBlock(SignedHeader(hdr, commit), lb.validators)
 
 
+class _Forging:
+    """A provider over `inner` that serves the blocks of `at` at their
+    heights instead of its own, and records the evidence reported to it
+    (with `at` empty: an honest provider that records)."""
+
+    def __init__(self, inner, at: dict):
+        self.inner, self.at, self.reported = inner, at, []
+
+    def __repr__(self):
+        return "forging-witness" if self.at else "primary"
+
+    def chain_id(self):
+        return self.inner.chain_id()
+
+    async def light_block(self, height):
+        return self.at.get(height) or await self.inner.light_block(height)
+
+    async def report_evidence(self, evidence):
+        self.reported.append(evidence)
+
+
 def _light_client_run(dev, blocks, lc: dict, *, sequential: bool, witnesses=()) -> dict:
     """A LightClient on `dev` over a list provider of `blocks` (trust
     pinned at height 1), witnesses as given: initialize, then verify the
@@ -1808,7 +1893,6 @@ def drive_light(dev, audit: ShapeAudit) -> dict:
     from tendermint_tpu_torch.crypto.ed25519 import Ed25519PubKey
     from tendermint_tpu_torch.light import client as C
     from tendermint_tpu_torch.light import verifier
-    from tendermint_tpu_torch.light.provider import Provider
     from tendermint_tpu_torch.types import evidence as E
 
     lc = build_light_bench(N_VALS, N_LC_HEADERS)
@@ -1916,25 +2000,8 @@ def drive_light(dev, audit: ShapeAudit) -> dict:
     # hash signed by the same keys: the client must raise Divergence and
     # report LightClientAttackEvidence to the primary
     forged = _resign_light(blocks[-1], lc["keys"], app_hash=b"\xde\xad" * 16)
-
-    class Forging(Provider):
-        def __init__(self, inner, at: dict):
-            self.inner, self.at, self.reported = inner, at, []
-
-        def __repr__(self):
-            return "forging-witness" if self.at else "primary"
-
-        def chain_id(self):
-            return LC_CHAIN_ID
-
-        async def light_block(self, height):
-            return self.at.get(height) or await self.inner.light_block(height)
-
-        async def report_evidence(self, evidence):
-            self.reported.append(evidence)
-
-    primary = Forging(tt.make_list_provider(blocks, LC_CHAIN_ID), {})
-    forging = Forging(tt.make_list_provider(blocks, LC_CHAIN_ID), {N_LC_HEADERS: forged})
+    primary = _Forging(tt.make_list_provider(blocks, LC_CHAIN_ID), {})
+    forging = _Forging(tt.make_list_provider(blocks, LC_CHAIN_ID), {N_LC_HEADERS: forged})
     client = C.LightClient(LC_CHAIN_ID, C.TrustOptions(lc["period_ns"], 1, blocks[0].header.hash()),
                            primary, [forging], device=dev)
     _launch_counts(reset=True)
@@ -2306,25 +2373,32 @@ def check_bls_kernels(dev, audit: PairingAudit, main_shape, per_sig_shape) -> tu
 
     # a timed row per kernel at the aggregate path's bucket and at the
     # per-signature path's, on the inputs each path gave
-    rows = []
-    for shape, path in ((main_shape, BLS_MAIN), (per_sig_shape, BLS_PERSIG)):
-        for kernel in (BP.MILLER, BP.FINAL_EXP):
-            ins = audit.seen[(kernel.name, shape)]["inputs"]
-            m, npairs = shape
-            if kernel is BP.MILLER:
-                run, plain = (lambda i=ins: BP.miller(*i)), (lambda i=ins: BP._miller_plain(*i))
-                real = int((~BP.pad_lanes(*ins[1:])).sum())
-                row = _bls_row(kernel, shape, run, plain, _miller_cost(m, npairs, real), 50)
-                row["real_lanes"] = real
-            else:
-                (f,) = ins
-                run, plain = (lambda x=f: BP.final_exp(x)), (lambda x=f: BP._final_exp_plain(x))
-                real = (~(f == BF.f12_one((), dev)).flatten(2).all(-1)).sum(1).tolist()
-                row = _bls_row(kernel, shape, run, plain, _final_exp_cost(m, npairs, real), 20)
-                row["lanes_not_one"] = real
-            row["path"] = path
-            rows.append(row)
+    rows = [_pairing_row(dev, kernel, shape, audit.seen[(kernel.name, shape)]["inputs"], path)
+            for shape, path in ((main_shape, BLS_MAIN), (per_sig_shape, BLS_PERSIG))
+            for kernel in (BP.MILLER, BP.FINAL_EXP)]
     return rows, {"held": held, "final_exp_vs_bls_math": vs_math}
+
+
+def _pairing_row(dev, kernel, shape, ins, path) -> dict:
+    """A timed `kernels` row for K7a or K7b at `shape` on the inputs `ins`
+    that `path` gave it, bound by the lanes this data needs."""
+    from tendermint_tpu_torch.crypto.cuda import bls_field as BF
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+
+    m, npairs = shape
+    if kernel is BP.MILLER:
+        run, plain = (lambda i=ins: BP.miller(*i)), (lambda i=ins: BP._miller_plain(*i))
+        real = int((~BP.pad_lanes(*ins[1:])).sum())
+        row = _bls_row(kernel, shape, run, plain, _miller_cost(m, npairs, real), 50)
+        row["real_lanes"] = real
+    else:
+        (f,) = ins
+        run, plain = (lambda x=f: BP.final_exp(x)), (lambda x=f: BP._final_exp_plain(x))
+        real = (~(f == BF.f12_one((), dev)).flatten(2).all(-1)).sum(1).tolist()
+        row = _bls_row(kernel, shape, run, plain, _final_exp_cost(m, npairs, real), 20)
+        row["lanes_not_one"] = real
+    row["path"] = path
+    return row
 
 
 def _expect_aggregate_failure(fn) -> None:
@@ -2987,6 +3061,449 @@ def drive_sha256(dev) -> tuple[dict, list]:
             "device_split": split, "crossover": crossover, "block_cycles": cycles}, rows
 
 
+LF_COLD = "light_fleet[bls_aggregate: cold client, per-signature hops]"
+LF_MAIN = "light_fleet[bls_aggregate: 64 LightD.sync, hop_proof]"
+LF_REVERIFY = "light_fleet[verify_hop_proof, aggregate]"
+LF_PERSIG = "light_fleet[per_sig: 64 LightD.sync, hop_proof]"
+LF_LUNATIC = "light_fleet[lunatic primary, honest witness]"
+
+
+def _watchdog():
+    """bench.py's LoopWatchdog (30 s): a wedged loop writes its stacks to
+    chiprun_out/watchdog/."""
+    from tendermint_tpu_torch.libs.watchdog import LoopWatchdog
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "watchdog")
+    return LoopWatchdog(out, threshold_s=30.0)
+
+
+@contextlib.contextmanager
+def _recording(audits, path: str):
+    """Record `path` in each of `audits` (ShapeAudit, PairingAudit)."""
+    with contextlib.ExitStack() as stack:
+        for a in audits:
+            stack.enter_context(a.recording(path))
+        yield
+
+
+def _pct(values: list, p: float) -> float:
+    """bench.py's percentile: the value at index int(p * n) of the sorted list."""
+    s = sorted(values)
+    return s[min(len(s) - 1, int(p * len(s)))] if s else 0.0
+
+
+def build_light_fleet_chain(scheme: str) -> dict:
+    """bench_light_fleet's chain for `scheme`: LF_VALS validators (seed
+    b"lf-" + scheme, ed25519 or bls12381) and LF_HEIGHTS signed headers."""
+    from tendermint_tpu_torch import testing as tt
+
+    t0 = time.perf_counter()
+    key_types = ("bls12381",) if scheme == "bls_aggregate" else ("ed25519",)
+    vals, keys = tt.make_validator_set(LF_VALS, key_types=key_types, seed=b"lf-" + scheme.encode())
+    chain = tt.make_light_chain(LF_HEIGHTS, vals, keys, LF_CHAIN_ID)
+    return {"vals": vals, "keys": keys, "chain": chain, "build_s": time.perf_counter() - t0}
+
+
+def _light_fleet_scheme(dev, chain, aggregate_hops: bool, audits, cold_path,
+                        main_path) -> tuple[dict, object]:
+    """bench_light_fleet's `_one_scheme` on the port, on `dev`, under
+    asyncio.wait_for and a LoopWatchdog: a cold LightClient alone, then
+    LF_CLIENTS concurrent `LightD.sync(LF_HEIGHTS)` on one LightD
+    (LightDConfig(max_sessions=32, aggregate_hops)), then `hop_proof`.
+    Each of the two runs counts launches from 0 and records its batch
+    routes and, in each of `audits` (the ShapeAudit and the
+    PairingAudit), its kernel shapes; the LightD run also its BLS host
+    split. Returns the bench's record and the served HopProof."""
+    import asyncio
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.config import LightDConfig
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.light import fleet
+    from tendermint_tpu_torch.light.client import LightClient, TrustOptions
+
+    wd = _watchdog()
+    trust = TrustOptions(period_ns=10**18, height=1, hash=chain[0].header.hash())
+    now = chain[-1].header.time_ns + 10**9
+
+    async def run() -> dict:
+        wd.start()
+        try:
+            # the cold baseline: one client verifying alone
+            cold_prov = tt.make_list_provider(chain, LF_CHAIN_ID)
+            lc = LightClient(LF_CHAIN_ID, trust, cold_prov, device=dev)
+            _launch_counts(reset=True)
+            with _batch_routes() as cold_routes, _recording(audits, cold_path):
+                t0 = time.perf_counter()
+                cold = await lc.verify_light_block_at_height(LF_HEIGHTS, now)
+                cold_s = time.perf_counter() - t0
+            cold_launches = _launch_counts()
+
+            prov = tt.make_list_provider(chain, LF_CHAIN_ID)
+            d = fleet.LightD(LF_CHAIN_ID, trust, prov, config=LightDConfig(
+                max_sessions=LF_SESSIONS, aggregate_hops=aggregate_hops), device=dev)
+            await d.start()
+            latencies, served, shed = [], [], 0
+
+            async def one_client():
+                nonlocal shed
+                c0 = time.perf_counter()
+                try:
+                    lb = await d.sync(LF_HEIGHTS, now_ns=now)
+                except fleet.LightDBusyError:
+                    shed += 1
+                    return
+                latencies.append(time.perf_counter() - c0)
+                served.append(lb)
+
+            trace.RECORDER.clear()
+            _launch_counts(reset=True)
+            try:
+                with _batch_routes() as routes, _recording(audits, main_path):
+                    t0 = time.perf_counter()
+                    await asyncio.gather(*(one_client() for _ in range(LF_CLIENTS)))
+                    elapsed = max(time.perf_counter() - t0, 1e-9)
+                    proof = await d.hop_proof(LF_HEIGHTS)
+                stats = dict(d.stats)
+            finally:
+                await d.stop()
+            return {"cold": cold, "cold_s": cold_s, "cold_hops": cold_prov.fetches,
+                    "cold_routes": cold_routes, "cold_launches": cold_launches,
+                    "served": served, "latencies": latencies, "shed": shed, "elapsed": elapsed,
+                    "proof": proof, "stats": stats, "fetches": prov.fetches, "routes": routes,
+                    "launches": _launch_counts(), "host_split": _bls_host_split()}
+        finally:
+            wd.stop()
+
+    r = asyncio.run(asyncio.wait_for(run(), LF_TIMEOUT_S))
+    want = chain[LF_HEIGHTS - 1].header.hash()
+    if r["cold"].header.hash() != want or len(r["served"]) + r["shed"] != LF_CLIENTS \
+            or any(lb.header.hash() != want for lb in r["served"]):
+        raise AssertionError(f"light fleet: a client's block is not the chain's header at "
+                             f"{LF_HEIGHTS}")
+    stats, proof, elapsed = r["stats"], r["proof"], r["elapsed"]
+    hops = max(stats["hops_verified"], 1.0)
+    lookups = stats["hop_cache_hits"] + stats["hop_cache_misses"]
+    return {
+        "proof_scheme": proof.scheme,
+        "hop_proof_wire_bytes": proof.wire_bytes(),
+        "sig_bytes_per_hop": 96 if proof.scheme == fleet.SCHEME_AGGREGATE else 64 * LF_VALS,
+        "syncs_per_s": len(r["latencies"]) / elapsed,
+        "completed": len(r["latencies"]),
+        "shed": r["shed"],
+        "shed_rate": r["shed"] / LF_CLIENTS,
+        "p50_sync_s": _pct(r["latencies"], 0.50),
+        "p99_sync_s": _pct(r["latencies"], 0.99),
+        "hop_cache_hit_rate": stats["hop_cache_hits"] / lookups if lookups else 0.0,
+        "coalesced": stats["coalesced"],
+        "hops_verified": stats["hops_verified"],
+        "sigs_covered_per_s": hops * LF_VALS / elapsed,
+        "cold_client_s": r["cold_s"],
+        "cold_client_hops": r["cold_hops"],
+        "amortization_factor": r["cold_hops"] * LF_CLIENTS / max(r["fetches"], 1),
+        "wall_s": elapsed,
+        "stats": stats,
+        "cold_routes": r["cold_routes"],
+        "cold_launches": r["cold_launches"],
+        "routes": r["routes"],
+        "launches": r["launches"],
+        "host_split": r["host_split"],
+        "watchdog_reports": len(wd.reports),
+    }, proof
+
+
+def drive_light_fleet(dev, audit: ShapeAudit, pairing: "PairingAudit") -> dict:
+    """Phase 17: bench.py's bench_light_fleet(150, 64, 6) on the port —
+    per_sig (ed25519) and bls_aggregate (bls12381) hops; the served
+    aggregate HopProof re-verified on the card with the memos cleared,
+    then with one flipped aggregate bit; a LightD with a lunatic primary
+    and an honest witness. Kernel shapes go to `audit` (B1-B3) and
+    `pairing` (K7a/K7b)."""
+    import asyncio
+    from dataclasses import replace
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto import bls, verify_hub
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.light import byzantine, fleet
+    from tendermint_tpu_torch.light.client import Divergence, TrustOptions
+    from tendermint_tpu_torch.light.types import LightBlock, SignedHeader
+    from tendermint_tpu_torch.types import evidence as E
+
+    pairs = (BP.MILLER.name, BP.FINAL_EXP.name)
+    trace.configure(enabled=True)  # the host split comes from the `bls` spans
+    BP.warmup(device=dev)
+    out: dict = {"n_vals": LF_VALS, "n_clients": LF_CLIENTS, "n_heights": LF_HEIGHTS,
+                 "max_sessions": LF_SESSIONS, "device": dev.type, "schemes": {}}
+    built = {}
+    for scheme, agg, cold_path, main_path in (
+            ("per_sig", False, LF_PERSIG + " cold", LF_PERSIG),
+            ("bls_aggregate", True, LF_COLD, LF_MAIN)):
+        b = built[scheme] = build_light_fleet_chain(scheme)
+        print(f"light_fleet: built the {LF_VALS}-validator {scheme} chain of {LF_HEIGHTS} "
+              f"headers in {b['build_s']:.1f} s")
+        t0 = time.perf_counter()
+        rec, b["proof"] = _light_fleet_scheme(dev, b["chain"], agg, (audit, pairing), cold_path,
+                                              main_path)
+        rec["chain_build_s"] = b["build_s"]
+        rec["phase_s"] = time.perf_counter() - t0
+        out["schemes"][scheme] = rec
+    per, agg = out["schemes"]["per_sig"], out["schemes"]["bls_aggregate"]
+    if per["hops_verified"] != agg["hops_verified"] or agg["proof_scheme"] != fleet.SCHEME_AGGREGATE:
+        raise AssertionError(f"light fleet: hops verified {per['hops_verified']} / "
+                             f"{agg['hops_verified']}, proof {agg['proof_scheme']}")
+    _require_all_launched(LF_MAIN, agg["launches"], names=pairs)
+    _require_all_launched(LF_COLD, agg["cold_launches"], names=pairs)
+    out["wire_ratio"] = per["hop_proof_wire_bytes"] / agg["hop_proof_wire_bytes"]
+    out["sig_bytes_ratio"] = per["sig_bytes_per_hop"] / agg["sig_bytes_per_hop"]
+
+    # the served aggregate proof, carried by its bytes, re-verified by a
+    # client node on the card: memos cleared, a fresh hub (its verdict
+    # cache answers the hop's second check of the same aggregate), one
+    # launch of each kernel
+    chain = built["bls_aggregate"]["chain"]
+    proof = fleet.HopProof.decode(built["bls_aggregate"]["proof"].encode())
+    now = chain[-1].header.time_ns + 10**9
+
+    def reverify(p):
+        verify_hub.acquire_hub(device=dev)
+        try:
+            return fleet.verify_hop_proof(LF_CHAIN_ID, chain[0], p, 10**18, now,
+                                          device=dev).height
+        finally:
+            verify_hub.release_hub()
+
+    bls._VERIFY_MEMO.clear()  # _bls_pass clears the hash-to-curve memo
+    _launch_counts(reset=True)
+    with _recording((audit, pairing), LF_REVERIFY):
+        rv = _bls_pass(dev, lambda: reverify(proof))
+    rv["launches"] = _launch_counts()
+    if rv["calls"] != LF_HEIGHTS or any(rv["launches"][k] != 1 for k in pairs):
+        raise AssertionError(f"verify_hop_proof: height {rv['calls']}, launches {rv['launches']}")
+    commit = proof.block.signed_header.commit
+    sig = commit.agg_sig
+    flipped = replace(commit, agg_sig=bytes([sig[0] ^ 1]) + sig[1:])
+    bad = fleet.HopProof(LightBlock(SignedHeader(proof.block.header, flipped),
+                                    proof.block.validators), proof.scheme)
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    try:
+        reverify(bad)
+    except fleet.HopProofError as e:
+        err = e
+    else:
+        raise AssertionError("a flipped aggregate bit verified")
+    if err.scheme != fleet.SCHEME_AGGREGATE or not str(err).startswith("[bls-aggregate]"):
+        raise AssertionError(f"flipped aggregate bit: {err!r}")
+    out["verify_hop_proof"] = {
+        "entry": "light.fleet.verify_hop_proof in a fresh hub, memos cleared",
+        "height": rv.pop("calls"), **rv,
+        "tampered": {"raised": str(err), "scheme": err.scheme,
+                     "wall_s": time.perf_counter() - t0, "launches": _launch_counts()},
+    }
+
+    # a lunatic primary and an honest witness: Divergence, one count, the
+    # evidence reported to the witness decodes back equal
+    b = built["per_sig"]
+    cfg = byzantine.LunaticConfig((LF_HEIGHTS,), seed=LF_LUNATIC_SEED, n_traitors=LF_TRAITORS)
+    lunatic = byzantine.LunaticProvider(tt.make_list_provider(b["chain"], LF_CHAIN_ID), cfg,
+                                        b["vals"], b["keys"])
+    witness = _Forging(tt.make_list_provider(b["chain"], LF_CHAIN_ID), {})
+    trust = TrustOptions(10**18, 1, b["chain"][0].header.hash())
+    d = fleet.LightD(LF_CHAIN_ID, trust, lunatic, [witness], device=dev)
+
+    async def attack():
+        await d.start()
+        try:
+            await d.sync(LF_HEIGHTS, now_ns=b["chain"][-1].header.time_ns + 10**9)
+        except Divergence as e:
+            return e.challenging.height
+        finally:
+            await d.stop()
+        raise AssertionError("a lunatic primary raised no Divergence")
+
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with _batch_routes() as lroutes, _recording((audit, pairing), LF_LUNATIC):
+        diverged_at = asyncio.run(attack())
+    lwall = time.perf_counter() - t0
+    if d.stats["divergences"] != 1 or len(witness.reported) != 1 or diverged_at != LF_HEIGHTS \
+            or lunatic.served_forged != [LF_HEIGHTS]:
+        raise AssertionError(f"lunatic: divergences {d.stats['divergences']}, reports "
+                             f"{len(witness.reported)}, forged {lunatic.served_forged}")
+    (ev,) = witness.reported
+    if not isinstance(ev, E.LightClientAttackEvidence):
+        raise AssertionError(f"reported {type(ev).__name__}")
+    back = E.decode_evidence(ev.encode())
+    if back.encode() != ev.encode() or back.hash() != ev.hash():
+        raise AssertionError("the lunatic attack evidence does not decode back equal")
+    out["lunatic"] = {
+        "attack_height": LF_HEIGHTS, "traitors": LF_TRAITORS, "diverged_at": diverged_at,
+        "divergences": d.stats["divergences"], "evidence_bytes": len(ev.encode()),
+        "common_height": ev.common_height, "byzantine_validators": len(ev.byzantine_validators),
+        "routes": lroutes, "wall_s": lwall, "launches": _launch_counts(),
+    }
+    out["pairing_shapes"] = {path: [[k, list(s)] for k, s in pairing.shapes(path)]
+                             for path in (LF_COLD, LF_MAIN, LF_REVERIFY)}
+    return out
+
+
+SSF_WAVE = "statesync_fleet[join wave]"
+SSF_PERSIG = "statesync_fleet[per-sig backfill, 32 heights]"
+SSF_DEEP = "statesync_fleet[per-sig backfill, 48 heights]"
+SSF_BLS = "statesync_fleet[bls backfill]"
+
+
+def drive_statesync_fleet(dev, audit: ShapeAudit, pairing: "PairingAudit") -> dict:
+    """Phase 18: bench.py's bench_statesync_fleet(64, 21, 8) on the port —
+    the join wave (8 joiners on one donor, under asyncio.wait_for and a
+    LoopWatchdog), then the backfill A/B over 64 validators through
+    verify_backfill_batch on the card with the memos cleared: the bench's
+    32-height per-signature window, a 48-height one that reaches the
+    cutoff (B1-B3), and SSF_BLS_HEIGHTS aggregate heights (K7a/K7b)."""
+    import asyncio
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto import batch, bls, bls_math
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.light.types import LightBlock, SignedHeader
+    from tendermint_tpu_torch.statesync.fleet import verify_backfill_batch
+    from tendermint_tpu_torch.types.block import aggregate_commit
+
+    pairs = (BP.MILLER.name, BP.FINAL_EXP.name)
+    out: dict = {"n_blocks": SSF_BLOCKS, "n_vals": SSF_VALS, "n_joiners": SSF_JOINERS,
+                 "device": dev.type}
+
+    # -- the join wave ----------------------------------------------------
+    t0 = time.perf_counter()
+    source = asyncio.run(tt.build_statesync_source(SSF_BLOCKS, SSF_VALS, device="cpu"))
+    build_s = time.perf_counter() - t0
+    print(f"statesync_fleet: built the {SSF_BLOCKS}-block donor chain of {SSF_VALS} validators "
+          f"in {build_s:.1f} s")
+    wd = _watchdog()
+    report: dict = {}
+
+    async def wave() -> dict:
+        wd.start()
+        try:
+            return await asyncio.wait_for(tt.statesync_fleet_scenario(
+                SSF_BLOCKS, SSF_VALS, SSF_JOINERS, device=dev, source=source, report=report),
+                SSF_TIMEOUT_S)
+        finally:
+            wd.stop()
+
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with _batch_routes() as routes:
+        res = asyncio.run(wave())
+    wall = time.perf_counter() - t0
+    states = {s.encode() for s in report["states"].values()}
+    if res["joined"] != SSF_JOINERS or res["join_errors"] or len(states) != 1:
+        raise AssertionError(f"join wave: joined {res['joined']}, errors {res['join_errors']}, "
+                             f"{len(states)} distinct States")
+    st = res["server_stats"]
+    elapsed = max(res["elapsed_s"], 1e-9)
+    bf = res["joiner_backfill"]
+    out["join_wave"] = {
+        "entry": "testing.statesync_fleet_scenario (bench.py bench_statesync_fleet)",
+        "joined": res["joined"],
+        "restored_height": next(iter(report["states"].values())).last_block_height,
+        "joiners_per_s": res["joined"] / elapsed,
+        "chunks_per_s": st["chunks_served"] / elapsed,
+        "p50_time_to_synced_s": _pct(res["time_to_synced_s"], 0.50),
+        "p99_time_to_synced_s": _pct(res["time_to_synced_s"], 0.99),
+        "sheds": st["sheds"],
+        "cache_hit_rate": st["cache_hits"] / max(st["cache_hits"] + st["cache_misses"], 1),
+        "donor_store_reads": st["store_reads"],
+        "donor_store_reads_per_joiner": st["store_reads"] / max(res["joined"], 1),
+        "chunk_amortization_factor": st["chunks_served"] / max(st["store_reads"], 1),
+        "headers_held": res["headers_held"],
+        "backfill_sigs": bf["backfill_sigs"],
+        "backfill_sigs_per_s": bf["backfill_sigs"] / elapsed,
+        "backfill_batches": bf["backfill_batches"],
+        "backfill_routes": routes,
+        "min_tpu_batch": batch.MIN_TPU_BATCH,
+        "elapsed_s": res["elapsed_s"],
+        "wall_s": wall,
+        "build_s": build_s,
+        "launches": _launch_counts(),
+        "watchdog_reports": len(wd.reports),
+    }
+
+    # -- the backfill A/B ---------------------------------------------------
+    ab = {"n_vals": SSF_AB_VALS}
+
+    def backfill(window, path):
+        """One cold verify_backfill_batch of `window` (memos cleared), its
+        routes, launches and shapes; the BLS window traced and profiled."""
+        bls_math._H2_MEMO.clear()
+        bls._VERIFY_MEMO.clear()
+
+        def run():
+            return asyncio.run(asyncio.wait_for(
+                verify_backfill_batch(SSF_CHAIN_ID, window, device=dev), SSF_TIMEOUT_S))
+
+        _launch_counts(reset=True)
+        with _batch_routes() as rts, _recording((audit, pairing), path):
+            t0 = time.perf_counter()
+            if window[0].signed_header.commit.is_aggregate():
+                rec = _bls_pass(dev, run)
+                n_sigs = rec.pop("calls")
+            else:
+                rec, n_sigs = {}, run()
+            dt = time.perf_counter() - t0
+        wall = rec.pop("wall_s", dt)  # the profiled pass's wall, without its post-processing
+        return {**rec, "heights": len(window), "verify_sigs": n_sigs, "wall_s": wall,
+                "heights_per_s": len(window) / wall,
+                "sigs_covered_per_s": len(window) * SSF_AB_VALS / wall,
+                "commit_wire_bytes": len(window[0].signed_header.commit.encode()),
+                "routes": rts, "launches": _launch_counts()}
+
+    t0 = time.perf_counter()
+    vals, keys = tt.make_validator_set(SSF_AB_VALS, seed=b"ssab-per_sig")
+    deep = tt.make_light_chain(SSF_DEEP_HEIGHTS, vals, keys, SSF_CHAIN_ID)
+    ps_build = time.perf_counter() - t0
+    per = backfill(deep[:SSF_AB_HEIGHTS], SSF_PERSIG)
+    tally = sum(n for n, _r in per["routes"])
+    want = "cuda" if tally >= batch.MIN_TPU_BATCH else "cpu"
+    if [r for _n, r in per["routes"]] != [want]:
+        raise AssertionError(f"{SSF_PERSIG}: routes {per['routes']}, cutoff {batch.MIN_TPU_BATCH}")
+    per.update(build_s=ps_build, tallied_sigs=tally)
+    ab["per_sig"] = per
+    dp = backfill(deep, SSF_DEEP)
+    if [r for _n, r in dp["routes"]] != ["cuda"]:
+        raise AssertionError(f"{SSF_DEEP}: routes {dp['routes']}, cutoff {batch.MIN_TPU_BATCH}")
+    _require_all_launched(SSF_DEEP, dp["launches"])
+    dp["tallied_sigs"] = sum(n for n, _r in dp["routes"])
+    ab["per_sig_deep"] = dp
+
+    t0 = time.perf_counter()
+    bvals, bkeys = tt.make_validator_set(SSF_AB_VALS, key_types=("bls12381",),
+                                         seed=b"ssab-bls_aggregate")
+    window = [LightBlock(SignedHeader(lb.signed_header.header,
+                                      aggregate_commit(lb.signed_header.commit, bvals)), bvals)
+              for lb in tt.make_light_chain(SSF_BLS_HEIGHTS, bvals, bkeys, SSF_CHAIN_ID)]
+    bls_build = time.perf_counter() - t0
+    print(f"statesync_fleet: built {SSF_BLS_HEIGHTS} aggregate heights of {SSF_AB_VALS} "
+          f"bls12381 validators in {bls_build:.1f} s")
+    trace.configure(enabled=True)  # the host split comes from the `bls` spans
+    agg = backfill(window, SSF_BLS)
+    want_shape = (BP.bucket_items(1), BP.bucket_pairs(SSF_AB_VALS + 1))
+    if any(agg["launches"][k] != SSF_BLS_HEIGHTS for k in pairs) \
+            or pairing.shapes(SSF_BLS) != [(k, want_shape) for k in sorted(pairs)]:
+        raise AssertionError(f"{SSF_BLS}: launches {agg['launches']}, shapes "
+                             f"{pairing.shapes(SSF_BLS)}")
+    agg.update(build_s=bls_build, bucket=list(want_shape), heights_cut_from=SSF_AB_HEIGHTS,
+               cut="heights cut from 32 (64 validators kept): pure-Python BLS signing and "
+                   "host hash-to-curve and line preparation set this half's wall")
+    ab["bls_aggregate"] = agg
+    ab["wire_ratio"] = per["commit_wire_bytes"] / agg["commit_wire_bytes"]
+    out["backfill_ab"] = ab
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3000,7 +3517,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, repo)
     from tendermint_tpu_torch.crypto.cuda import _build
-    from tendermint_tpu_torch.crypto.cuda import bls_pairing  # noqa: F401  (registers K7a, K7b)
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP  # (registers K7a, K7b)
     from tendermint_tpu_torch.crypto.cuda import sha256  # noqa: F401  (registers B8)
 
     dev = torch.device("cuda")
@@ -3065,6 +3582,19 @@ def main() -> int:
     sha, sha_rows = drive_sha256(dev)
     sha["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"sha256": sha}))
+    fleet_pairing = PairingAudit()
+    t0 = time.perf_counter()
+    lf = drive_light_fleet(dev, audit, fleet_pairing)
+    lf["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"light_fleet": lf}))
+    t0 = time.perf_counter()
+    ssf = drive_statesync_fleet(dev, audit, fleet_pairing)
+    ssf["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"statesync_fleet": ssf}))
+    # K7a and K7b at every shape phases 17-18 gave them, path and
+    # worst-case inputs
+    t0 = time.perf_counter()
+    fleet_held = _hold_pairing_shapes(dev, fleet_pairing)
 
     by_path = {
         "verify_commit_range[ed25519]": run["launches"],
@@ -3090,15 +3620,44 @@ def main() -> int:
         SS_BLS: ss["bls_backfill"]["launches"],
         SS_BLS_TAMPERED: ss["bls_backfill"]["tampered"]["launches"],
         MERKLE_PATH: sha["launches"],
+        LF_PERSIG + " cold": lf["schemes"]["per_sig"]["cold_launches"],
+        LF_PERSIG: lf["schemes"]["per_sig"]["launches"],
+        LF_COLD: lf["schemes"]["bls_aggregate"]["cold_launches"],
+        LF_MAIN: lf["schemes"]["bls_aggregate"]["launches"],
+        LF_REVERIFY: lf["verify_hop_proof"]["launches"],
+        LF_REVERIFY + " flipped bit": lf["verify_hop_proof"]["tampered"]["launches"],
+        LF_LUNATIC: lf["lunatic"]["launches"],
+        SSF_WAVE: ssf["join_wave"]["launches"],
+        SSF_PERSIG: ssf["backfill_ab"]["per_sig"]["launches"],
+        SSF_DEEP: ssf["backfill_ab"]["per_sig_deep"]["launches"],
+        SSF_BLS: ssf["backfill_ab"]["bls_aggregate"]["launches"],
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
 
-    held = audit_shapes(dev, audit, rows, (ED_MAIN, SR_MAIN, BS_MAIN, LC_MAIN))
+    # a timed row for each (kernel, shape) of phases 17-18 that phase 14
+    # did not time
+    timed_shapes = {(r["name"], tuple(r["shape"])) for r in bls_rows}
+    fleet_rows = []
+    for (name, shape), rec in sorted(fleet_pairing.seen.items()):
+        if (name, shape) in timed_shapes:
+            continue
+        path = next(iter(rec["calls"]))
+        kernel = {k.name: k for k in (BP.MILLER, BP.FINAL_EXP)}[name]
+        row = _pairing_row(dev, kernel, shape, rec["inputs"], path)
+        row["launches"] = by_path[path][name]
+        device_ms = ssf["backfill_ab"]["bls_aggregate"]["device_ms"][name] \
+            if path == SSF_BLS else None
+        row["main_path_device_ms"] = device_ms / row["launches"] if device_ms else None
+        fleet_rows.append(row)
+    print(json.dumps({"fleet_pairing_shapes": fleet_held,
+                      "seconds": time.perf_counter() - t0}))
+
+    held = audit_shapes(dev, audit, rows, (ED_MAIN, SR_MAIN, BS_MAIN, LC_MAIN, SSF_DEEP))
     for name in EDWARDS_KERNELS:
         paths = {p for rec in held.get(name, []) for p in rec["calls"]}
         if not {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED, BS_MAIN, LC_MAIN,
-                LC_TAMPERED} <= paths:
+                LC_TAMPERED, SSF_DEEP} <= paths:
             raise AssertionError(f"{name}: shapes recorded on {sorted(paths)} only")
     print(json.dumps({"shapes": held}))
     for row in rows:
@@ -3119,7 +3678,7 @@ def main() -> int:
             row["launches"] = by_path[row["path"]][row["name"]]
             row["main_path_device_ms"] = None
         rows.append(row)
-    for row in sha_rows:
+    for row in sha_rows + fleet_rows:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
         rows.append(row)
 

@@ -1,6 +1,6 @@
 """Node configuration — the port's copy of the sections of
-tendermint_tpu/config.py that it reads so far: `VerifyHubConfig` and
-`BootDConfig`.
+tendermint_tpu/config.py that it reads so far: `VerifyHubConfig`,
+`LightDConfig` and `BootDConfig`.
 """
 
 from __future__ import annotations
@@ -20,6 +20,29 @@ class VerifyHubConfig:
     max_batch: int = 512  # dispatch target (sigs queued)
     window_ms: float = 2.0  # micro-batch window ceiling (adaptive below it)
     cache_size: int = 8192  # verified-(pubkey,msg,sig) LRU entries
+
+
+@dataclass
+class LightDConfig:
+    """LightD — the light-client serving layer (light/fleet.py): one
+    verified-hop cache + aggregate hop proofs served to a client fleet.
+    The reference's TMTPU_LIGHTD_* env overrides are not read: LightD
+    takes its knobs from this config alone."""
+
+    #: concurrent verification sessions before arrivals are rejected
+    #: with busy (LightDBusyError — the ingress backpressure contract;
+    #: cache hits and coalesced same-height joins never shed)
+    max_sessions: int = 64
+    #: hop proofs kept per LightD, encodings memoized (insertion-evicted)
+    proof_cache: int = 1024
+    #: fold BLS committees' hop commits into the 96-byte aggregate wire
+    #: variant (verified through verify_hub.verify_aggregate — one
+    #: pairing per hop); per-sig fallback applies either way for
+    #: non-BLS committees
+    aggregate_hops: bool = True
+    #: sequential (adjacent-chain) verification instead of skipping —
+    #: the audit/archival shape; skipping is the serving default
+    sequential: bool = False
 
 
 @dataclass

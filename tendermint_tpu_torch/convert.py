@@ -19,6 +19,7 @@ the port), so a chain built by one package replays in the other:
   genesis                        GenesisDoc (through its JSON)
   block_store                    every block and commit of a BlockStore
   light_block, signed_header     LightBlock, SignedHeader
+  hop_proof                      a LightD HopProof (aggregate or per-sig)
   evidence                       DuplicateVote / LightClientAttack evidence
 
 and back: `to_reference(obj, ref_cls)` for any of those types (with the
@@ -142,6 +143,14 @@ def signed_header(ref_sh):
     return SignedHeader.decode(ref_sh.encode())
 
 
+def hop_proof(ref_proof):
+    """The reference's light.fleet.HopProof → the port's, so that the
+    port re-verifies a proof the reference's LightD served."""
+    from .light.fleet import HopProof
+
+    return HopProof.decode(ref_proof.encode())
+
+
 def evidence(ref_ev):
     """The reference's evidence (either kind) → the port's."""
     from .types.evidence import decode_evidence
@@ -159,7 +168,7 @@ def evidence_to(ev, decode_evidence):
 
 def to_reference(obj, ref_cls):
     """One of the port's wire types (Block, Commit, ValidatorSet, State,
-    LightBlock, SignedHeader; GenesisDoc through its JSON) -> the
+    LightBlock, SignedHeader, HopProof; GenesisDoc through its JSON) -> the
     reference's `ref_cls`, decoded from the bytes both packages share."""
     if hasattr(ref_cls, "from_json"):
         return ref_cls.from_json(obj.to_json())

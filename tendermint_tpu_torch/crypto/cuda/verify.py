@@ -40,8 +40,9 @@ L = 2**252 + 27742317777372353535851937790883648493
 
 _MIN_BUCKET = 64
 #: Largest single-launch batch: bigger ranges split into chunks of this
-#: size, all issued before any result is read back.
-_MAX_BUCKET = 8192
+#: size, all issued before any result is read back. TMTPU_MAX_BUCKET sets
+#: it, as in the reference (read once, at import).
+_MAX_BUCKET = int(os.environ.get("TMTPU_MAX_BUCKET", "8192"))
 
 RandBytes = Callable[[int], bytes]
 

@@ -27,6 +27,7 @@ app-hash trees, validator-set hashes — goes through `sha256_many` /
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
 import time
 
@@ -54,7 +55,8 @@ LANE_LIGHT = "light"
 _LANES = (LANE_BUILD, LANE_VERIFY, LANE_LIGHT)
 
 #: the device route engages only for batches at least this wide: the
-#: reference's default (TMTPU_MIN_HASH_BATCH), kept as it is. Measured on
+#: reference's default, and TMTPU_MIN_HASH_BATCH sets it as it does
+#: there (read once, at import). Measured on
 #: an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 16, widths 16
 #: to 16,384 in powers of two), the route beat the hashlib loop from 512
 #: messages (from 256 for 251-byte leaves in one run of five), for
@@ -63,7 +65,7 @@ _LANES = (LANE_BUILD, LANE_VERIFY, LANE_LIGHT)
 #: a launch, the join and the split) before its ~0.2-0.3 us a message. Wide
 #: batches also emit a `hash.batch` span when tracing is on (a span per
 #: narrow tree level would cost more than the hashing and flood the ring)
-MIN_DEVICE_BATCH = 256
+MIN_DEVICE_BATCH = int(os.environ.get("TMTPU_MIN_HASH_BATCH", "256"))
 
 #: per-lane and global counters; plain dict with unlocked += on the hot
 #: path (a rare lost increment in a stats counter is acceptable, a lock

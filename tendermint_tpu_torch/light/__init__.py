@@ -2,8 +2,9 @@
 verify headers against a trusted header using validator-set overlap
 instead of replaying the chain. The stateless core verifier is
 light/verifier.py; the stateful client with bisection, a pluggable
-trusted store, and witness cross-checking is light/client.py. The
-reference's fleet, proxy and byzantine modules are not ported yet."""
+trusted store, and witness cross-checking is light/client.py; the
+serving layer (LightD, hop proofs) is light/fleet.py and the lunatic
+provider light/byzantine.py. The reference's proxy is not ported yet."""
 
 from .types import LightBlock, SignedHeader
 

@@ -1,8 +1,8 @@
 """Test/bench fixtures: deterministic validator sets, signed commits,
 light chains, kvstore chains, pairing buckets and the state-sync restore
-scenario (the subset of tendermint_tpu/testing.py the commit, block-sync,
-light-client and state-sync paths need, and the chain builds of bench.py's
-block-sync and state-sync benches). Keys derive from the same seeds as the reference's, so both
+and join-wave scenarios (the subset of tendermint_tpu/testing.py the
+commit, block-sync, light-client and state-sync paths need, and the chain
+builds of bench.py's block-sync and state-sync benches). Keys derive from the same seeds as the reference's, so both
 packages build the same validators and addresses, and the same
 signatures wherever the scheme is deterministic (ed25519, sr25519;
 secp256k1 only on the pure-Python path)."""
@@ -413,4 +413,189 @@ async def statesync_restore_scenario(
         await client.stop()
         await server.stop()
         await dst_app.stop()
+        await src_conns.stop()
+
+
+async def statesync_fleet_scenario(
+    n_blocks: int,
+    n_vals: int,
+    n_joiners: int = 4,
+    *,
+    backfill_blocks: int | None = None,
+    bootd_config=None,
+    sync_timeout_s: float = 300.0,
+    device=DEFAULT_DEVICE,
+    source=None,
+    report: dict | None = None,
+) -> dict:
+    """BootFleet in-process shape (the reference's
+    `testing.statesync_fleet_scenario`): ONE donor reactor (its BootD
+    serving every joiner from the shared chunk cache) vs `n_joiners`
+    concurrent cold joiners, bridged by routing pumps — the `bench.py
+    statesync` join-wave workload, without a live router mesh. Every
+    reactor is built on `device`, so each joiner's backfill windows verify
+    there. Returns per-joiner sync times, the donor's BootD stats (cache
+    amortization, sheds, store reads), and per-joiner join outcomes (a
+    shed/failed joiner is an outcome, not a raise).
+
+    `source` is a donor chain from `build_statesync_source` (built here,
+    on `device`, when None). `report`, when given, receives each joined
+    joiner's restored State ("states", by joiner name)."""
+    import asyncio
+
+    from .abci.kvstore import KVStoreApp
+    from .p2p.peermanager import PeerStatus, PeerUpdate
+    from .p2p.router import Channel
+    from .p2p.types import Envelope
+    from .proxy import AppConns
+    from .state.store import StateStore
+    from .statesync import (
+        CHUNK_CHANNEL,
+        LIGHT_BLOCK_CHANNEL,
+        PARAMS_CHANNEL,
+        SNAPSHOT_CHANNEL,
+    )
+    from .statesync import messages as ssm
+    from .statesync.reactor import StateSyncReactor, SyncConfig
+    from .store.blockstore import BlockStore
+    from .store.db import MemDB
+
+    if source is None:
+        source = await build_statesync_source(n_blocks, n_vals, device=device)
+    src_bstore, src_sstore, src_conns, genesis = source
+
+    def channels() -> dict[int, Channel]:
+        return {
+            cid: Channel(cid, name, 5, ssm.encode_message, ssm.decode_message)
+            for cid, name in (
+                (SNAPSHOT_CHANNEL, "snapshot"),
+                (CHUNK_CHANNEL, "chunk"),
+                (LIGHT_BLOCK_CHANNEL, "lightblock"),
+                (PARAMS_CHANNEL, "params"),
+            )
+        }
+
+    src_ch = channels()
+    server = StateSyncReactor(
+        genesis.chain_id, src_conns, src_sstore, src_bstore,
+        src_ch[SNAPSHOT_CHANNEL], src_ch[CHUNK_CHANNEL],
+        src_ch[LIGHT_BLOCK_CHANNEL], src_ch[PARAMS_CHANNEL],
+        asyncio.Queue(),
+        bootd_config=bootd_config,
+        device=device,
+    )
+    joiner_ch: dict[str, dict[int, Channel]] = {
+        f"joiner-{i}": channels() for i in range(n_joiners)
+    }
+    clients: dict[str, StateSyncReactor] = {}
+    apps: list[AppConns] = []
+    stores: dict[str, BlockStore] = {}
+    for name, chs in joiner_ch.items():
+        app = AppConns.local(KVStoreApp(MemDB()))
+        apps.append(app)
+        bstore = BlockStore(MemDB())
+        stores[name] = bstore
+        q: asyncio.Queue = asyncio.Queue()
+        clients[name] = StateSyncReactor(
+            genesis.chain_id, app, StateStore(MemDB()), bstore,
+            chs[SNAPSHOT_CHANNEL], chs[CHUNK_CHANNEL],
+            chs[LIGHT_BLOCK_CHANNEL], chs[PARAMS_CHANNEL], q,
+            device=device,
+        )
+        await q.put(PeerUpdate("server", PeerStatus.UP))
+
+    async def pump_to_server(cid: int, name: str) -> None:
+        src = joiner_ch[name][cid]
+        while True:
+            env = await src.out_q.get()
+            await src_ch[cid].in_q.put(
+                Envelope(env.channel_id, env.message, from_=name)
+            )
+
+    async def route_from_server(cid: int) -> None:
+        # the server addresses every reply (`to=env.from_`); route it to
+        # that joiner's channel — a broadcast (never sent today) fans out
+        while True:
+            env = await src_ch[cid].out_q.get()
+            targets = [env.to] if env.to else list(joiner_ch)
+            for t in targets:
+                if t in joiner_ch:
+                    await joiner_ch[t][cid].in_q.put(
+                        Envelope(env.channel_id, env.message, from_="server")
+                    )
+
+    pumps = [
+        asyncio.get_running_loop().create_task(pump_to_server(cid, name))
+        for cid in src_ch
+        for name in joiner_ch
+    ] + [
+        asyncio.get_running_loop().create_task(route_from_server(cid))
+        for cid in src_ch
+    ]
+    await server.start()
+    for c in clients.values():
+        await c.start()
+    loop = asyncio.get_running_loop()
+    meta1 = src_bstore.load_block_meta(1)
+    cfg = SyncConfig(
+        trust_height=1,
+        trust_hash=meta1.header.hash(),
+        trust_period_ns=10 * 365 * 24 * 3600 * 10**9,
+        backfill_blocks=backfill_blocks,
+    )
+    out: dict = {
+        "n_joiners": n_joiners,
+        "joined": 0,
+        "join_errors": [],
+        "time_to_synced_s": [],
+        "headers_held": [],
+        "elapsed_s": 0.0,
+        "server_stats": {},
+    }
+    states: dict = {}
+
+    async def join_one(name: str) -> None:
+        t0 = loop.time()
+        try:
+            state = await asyncio.wait_for(
+                clients[name].sync(cfg), sync_timeout_s
+            )
+        except Exception as e:  # noqa: BLE001 — structured outcome
+            out["join_errors"].append(f"{name}: {e!r}")
+            return
+        out["joined"] += 1
+        out["time_to_synced_s"].append(round(loop.time() - t0, 4))
+        states[name] = state
+        held, h = 0, state.last_block_height
+        while h >= 1 and stores[name].load_block_meta(h) is not None:
+            held += 1
+            h -= 1
+        out["headers_held"].append(held)
+
+    try:
+        t0 = loop.time()
+        await asyncio.gather(*(join_one(n) for n in clients))
+        out["elapsed_s"] = round(loop.time() - t0, 4)
+        out["server_stats"] = dict(server.bootd.stats)
+        # backfill verification happens on the JOINERS' side (their
+        # BootD counters), not the donor's
+        out["joiner_backfill"] = {
+            key: sum(c.bootd.stats[key] for c in clients.values())
+            for key in (
+                "backfill_heights", "backfill_sigs",
+                "backfill_agg_heights", "backfill_batches",
+            )
+        }
+        if report is not None:
+            report["states"] = states
+        return out
+    finally:
+        for t in pumps:
+            t.cancel()
+        await asyncio.gather(*pumps, return_exceptions=True)
+        for c in clients.values():
+            await c.stop()
+        await server.stop()
+        for app in apps:
+            await app.stop()
         await src_conns.stop()

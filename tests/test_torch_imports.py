@@ -485,3 +485,72 @@ def test_statesync_entry_points_raise_without_cuda_unless_cpu_requested(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn(device="cuda")
     fn(device="cpu")  # the host, when asked for, works
+
+
+FLEET_MODULES = [
+    "tendermint_tpu_torch.libs.watchdog",
+    "tendermint_tpu_torch.light.byzantine",
+    "tendermint_tpu_torch.light.fleet",
+    "tendermint_tpu_torch.statesync.byzantine",
+]
+
+
+def test_scan_and_blocked_import_cover_the_fleet_modules():
+    """The AST scan and the jax-blocked import walk every module of the
+    package; LightD's, the lunatic provider's, the poisoned donor's and
+    the watchdog's are among them, and the config and scenario they add
+    elsewhere are there."""
+    assert set(FLEET_MODULES) <= set(_port_modules())
+    from tendermint_tpu_torch import config
+    from tendermint_tpu_torch import testing as tt
+
+    assert config.LightDConfig().max_sessions == 64
+    assert callable(tt.statesync_fleet_scenario)
+
+
+def _fleet_entry_points():
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.light import client, fleet
+
+    vals, keys = tt.make_validator_set(2)
+    chain = tt.make_light_chain(3, vals, keys, "c")
+    now = chain[-1].header.time_ns + 10**9
+    opts = client.TrustOptions(10**18, 1, chain[0].header.hash())
+
+    def lightd(**kw):
+        async def go():
+            d = fleet.LightD("c", opts, tt.make_list_provider(chain, "c"), **kw)
+            await d.start()
+            try:
+                return await d.sync(3, now_ns=now)
+            finally:
+                await d.stop()
+
+        return asyncio.run(go())
+
+    return {
+        "LightD": lightd,
+        "statesync_fleet_scenario": lambda **kw: asyncio.run(
+            tt.statesync_fleet_scenario(12, 2, 1, **kw)
+        ),
+        "verify_hop_proof": lambda **kw: fleet.verify_hop_proof(
+            "c", chain[0], fleet.make_hop_proof(chain[2]), 10**18, now, **kw
+        ),
+    }
+
+
+FLEET_ENTRY_POINTS = ["LightD", "statesync_fleet_scenario", "verify_hop_proof"]
+
+
+@pytest.mark.parametrize("name", FLEET_ENTRY_POINTS)
+def test_fleet_entry_points_raise_without_cuda_unless_cpu_requested(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    points = _fleet_entry_points()
+    assert sorted(points) == FLEET_ENTRY_POINTS
+    fn = points[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(device="cuda")
+    fn(device="cpu")  # the host, when asked for, works
