@@ -54,9 +54,10 @@ failure exits non-zero, nothing is caught and carried past):
      for. Prints the hub's stats, wall and sigs/s beside phase 3's
      direct call; `running_hub()` is None after release;
  12. block-sync (run after phase 10, before the audit): bench.py's
-     block-sync bench (BASELINE config 3) on the port — a 1,024-block
-     kvstore chain of the 150-validator set, built through the port's
-     executor on the host (device="cpu": set-up, its seconds printed),
+     block-sync bench (BASELINE config 3) on the port — a 256-block
+     kvstore chain (cut from 1,024 to make room for phase 19) of the
+     150-validator set, built through the port's executor on the host
+     (device="cpu": set-up, its seconds printed),
      replayed by a fresh node's BlockSyncReactor on the card, window 108,
      one in-process peer serving blocks through a Channel, no hub. Each
      range goes to verify_commit_range once (a full window is 10,908
@@ -98,14 +99,15 @@ failure exits non-zero, nothing is caught and carried past):
      LightClientAttackEvidence to the primary, whose bytes decode back
      equal; prints its attributed validators;
  14. BLS aggregate commits (run after phase 13, before the audit):
-     bench.py's bench_commit_ab(150, 4), its bls_aggregate half — 150
-     bls12381 validators (seed b"ab-bls_aggregate", chain "ab-chain") and 4
-     commits folded by aggregate_commit, built on the host (seconds
-     printed); with no hub and the hash-to-curve memo cleared before each
-     pass, verify_commit on each commit, then one verify_commit_range over
-     the 4: every check one pairing item of 151 pairs, so K7a
-     (bls_miller) and K7b (bls_final_exp) each launch 8 times, all at the
-     (2, 256) bucket; each pass prints its wall, the host split
+     bench.py's bench_commit_ab(150, 4), its bls_aggregate half, cut to 2
+     commits (to make room for phase 19) — 150 bls12381 validators (seed
+     b"ab-bls_aggregate", chain "ab-chain") and 2 commits folded by
+     aggregate_commit, built on the host (seconds printed); with no hub
+     and the hash-to-curve memo cleared before each pass, verify_commit on
+     each commit, then one verify_commit_range over the 2: every check one
+     pairing item of 151 pairs, so K7a (bls_miller) and K7b
+     (bls_final_exp) each launch 4 times, all at the (2, 256) bucket;
+     each pass prints its wall, the host split
      (hash-to-curve, line preparation, packing, the copy), each kernel's
      device ms and the card's idle share (torch.profiler). Then the
      pure-Python floor (bls.aggregate_verify) and the card's
@@ -206,13 +208,33 @@ failure exits non-zero, nothing is caught and carried past):
      are then held torch.equal to their plain versions at every shape
      phases 17-18 gave them (path and worst-case inputs), and each shape
      phase 14 did not time gets a timed `kernels` row;
+ 19. the sharded verifier (B6, run after phase 18, before the audit): the
+     mesh is the first 4 (then 3) cards when the machine has them, else 4
+     (then 3) logical shards of cuda:0 (printed). On phase 3's range at
+     the 8,192 bucket (8,193 at 3 shards), one `make_sharded_kernel_eq`
+     call against an unsharded `kernel_eq` on the same operands: bitmap
+     and eq_ok torch.equal, the folded total projectively equal to the
+     unsharded R-side MSM, B1 launched and B2 and B3 exactly n_dev + 1
+     times each; then phase 4's tampered range through
+     verify_commit_range on the mesh with TMTPU_FORCE_SHARDED=1: the right
+     failed_index, the sharded kernel_sig (one kernel_sig a shard) singling
+     out the signature, and last_dispatch_info() listing n_dev shards that
+     hold the range; then the hub at its default max_batch (512) over the
+     4-shard mesh: mesh_devices 4 and capacity 2,048, its dispatches'
+     routes and shards printed. Prints each call's wall, the card's busy
+     time and idle share and each kernel's launches and device ms (the
+     profiler, the card's activity only) beside the unsharded call's, and
+     the least time of its launches (each launch's bound at its shape,
+     summed); each B2 and B3 size of a sharded kernel_eq (a shard, the
+     epilogue) and its largest B1 size gets a timed `kernels` row;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
      block-sync replay and its tampered pass (phase 12, two-chunk ranges
      included), the light paths (phase 13: the 13-chunk range, the
-     client's windows, the tampered range) and the 48-height per-signature
-     backfill of phase 18 gave B1, B2 and B3 is held
+     client's windows, the tampered range), the 48-height per-signature
+     backfill of phase 18 and the sharded paths of phase 19 gave B1, B2
+     and B3 is held
      against the plain version with torch.equal, on the inputs the path
      gave and on worst-case inputs of the same shapes; phase 2's sizes
      must be sizes the main path gives; the largest size of each kernel
@@ -223,8 +245,9 @@ Each path's launch counts are set to 0 just before it and read just
 after (the block-sync reactor verifies in a worker thread; its launches
 count too). Prints the card's name and power limit, `breakdown`,
 `sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `light`, `bls`,
-`statesync`, `sha256`, `light_fleet`, `statesync_fleet`,
-`fleet_pairing_shapes`, `shapes`, `slice`, `kernels` and `script_wall_s`
+`statesync`, `sha256`, `light_fleet`, `statesync_fleet`, `sharded`,
+`fleet_pairing_shapes`, `shapes`, `sharded_rows`, `slice`, `kernels` and
+`script_wall_s`
 JSON lines, and last {"ok": true,
 "device": {...}}. Imports nothing of JAX or of the JAX
 package. Build output goes to build/torch_ext/.
@@ -251,8 +274,10 @@ SR_TAMPER_COMMIT, SR_TAMPER_VAL = 3, 7
 HUB_MAX_BATCH = 8192
 SEED = 20261016
 # phase 12, bench.py's block-sync bench (BASELINE config 3): 150
-# validators of power 10, a 1,024-block kvstore chain, window 108
-N_BS_BLOCKS = 1024
+# validators of power 10, a kvstore chain of 256 blocks (cut from 1,024, and
+# bench.py's 10k, to keep the script in its time limit with phase 19),
+# window 108
+N_BS_BLOCKS = 256
 BS_WINDOW = 108
 BS_CHAIN_ID = "bs-bench"
 # the tampered pass: the commit for BS_TAMPER_HEIGHT carries one flipped
@@ -271,8 +296,11 @@ LC_BASE_TS = 1_700_000_000_000_000_000
 # lies past 12 * 8,192, in the last kernel_eq chunk
 LC_TAMPER_HEIGHT, LC_TAMPER_VAL = 990, 5
 # phase 14, bench.py's bench_commit_ab(150, 4), its bls_aggregate half:
-# 150 bls12381 validators, 4 commits folded into aggregates
-N_AB_COMMITS = 4
+# 150 bls12381 validators, 2 commits (cut from 4, to keep the script in its
+# time limit with phase 19: each costs ~7 s to sign and ~18 s to verify
+# twice, hash-to-curve and line preparation on the host) folded into
+# aggregates
+N_AB_COMMITS = 2
 AB_CHAIN_ID = "ab-chain"
 AB_SEED = b"ab-bls_aggregate"
 AB_BASE_TS = 1_700_000_000_000_000_000
@@ -542,27 +570,31 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_events(fn, reps: int = 1) -> list:
+def _device_events(fn, reps: int = 1) -> list[tuple[str, int]]:
     """The card's own activity records (kernels, copies) of `reps` calls,
-    from torch.profiler (CUPTI)."""
+    from torch.profiler (CUPTI), as (name, ns). The profiler records the
+    card's activity only, and its raw records are read without building
+    its event tree: over the ~42k operations of a kernel_eq (~100k
+    sharded) that tree takes seconds to tens of seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
 
 
 def _device_ms(fn, reps: int, name: str | None = None) -> float | None:
     """Device milliseconds per call: the summed duration of the card's
     activity records of one call (of kernels whose name holds `name`,
     when given). None when the profiler recorded no device activity."""
-    events = [e for e in _device_events(fn, reps) if name is None or name in e.name]
+    events = [ns for n, ns in _device_events(fn, reps) if name is None or name in n]
     if not events:
         return None
-    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+    return sum(events) / reps / 1e6
 
 
 def _limbs(gen, dev, shape, lo=0, hi=512):
@@ -1010,11 +1042,11 @@ def breakdown(dev, entries) -> dict:
         timed_wall = time.perf_counter() - t5
     finally:
         F.mul = real_mul
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    busy = sum(ns for _, ns in events) / 1e9
     by_name: dict[str, list] = {}
-    for e in events:
-        rec = by_name.setdefault(e.name, [0.0, 0])
-        rec[0] += e.time_range.elapsed_us() / 1e3
+    for name, ns in events:
+        rec = by_name.setdefault(name, [0.0, 0])
+        rec[0] += ns / 1e6
         rec[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     ported = {
@@ -2178,24 +2210,24 @@ def _bls_pass(dev, run) -> dict:
     memo cleared first (bench_commit_ab's cold verify), the host split
     from the `bls` trace spans, each kernel's device ms and the card's
     busy time from torch.profiler, and the idle share of the wall."""
-    from torch.profiler import ProfilerActivity, profile
-
-    import torch
     from tendermint_tpu_torch.crypto import bls_math
     from tendermint_tpu_torch.libs import trace
 
     bls_math._H2_MEMO.clear()
     trace.RECORDER.clear()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    timed = {}
+
+    def timed_run():
         t0 = time.perf_counter()
-        per_call = run()
+        timed["calls"] = run()
         _sync(dev)
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        timed["wall"] = time.perf_counter() - t0
+
+    events = _device_events(timed_run)
+    per_call, wall = timed["calls"], timed["wall"]
 
     def dev_ms(name=None):
-        return sum(e.time_range.elapsed_us() for e in events
-                   if name is None or name in e.name) / 1e3
+        return sum(ns for n, ns in events if name is None or name in n) / 1e6
 
     busy_ms = dev_ms()
     host = _bls_host_split()
@@ -2443,7 +2475,7 @@ def drive_bls(dev) -> dict:
     trace.configure(enabled=True)  # the host split comes from the `bls` spans
 
     # the timed passes, no hub (bench.py's): verify_commit on each, then
-    # one verify_commit_range over the 4
+    # one verify_commit_range over all of them
     _launch_counts(reset=True)
 
     def each():
@@ -3504,6 +3536,276 @@ def drive_statesync_fleet(dev, audit: ShapeAudit, pairing: "PairingAudit") -> di
     return out
 
 
+# phase 19: the sharded verifier (B6) over a mesh of 4 and of 3 shards —
+# real cards when the machine has that many, else logical shards of one
+SH_SHARDS = (4, 3)
+SH_HUB = "sharded[hub, max_batch 512, 4 shards]"
+SH_UNSHARDED = "sharded[kernel_eq, unsharded]"
+
+
+def _sh_path(kind: str, n_dev: int) -> str:
+    return f"sharded[{kind}, {n_dev} shards]"
+
+
+def _sharded_by_path(sharded: dict) -> dict:
+    """Phase 19's launches by path: the unsharded call, each mesh's
+    sharded kernel_eq and tampered range, and the hub."""
+    return {
+        SH_UNSHARDED: sharded["unsharded"]["launches"],
+        **{_sh_path("kernel_eq", int(n)): rec["launches"] for n, rec in sharded["meshes"].items()},
+        **{_sh_path("tampered", int(n)): rec["tampered"]["launches"]
+           for n, rec in sharded["meshes"].items()},
+        SH_HUB: sharded["hub"]["launches"],
+    }
+
+
+def _mesh_of(n_dev: int) -> tuple[list, str]:
+    """The first n_dev cards when the machine has that many, else n_dev
+    logical shards of cuda:0; and which of the two it is."""
+    import torch
+
+    if torch.cuda.device_count() >= n_dev:
+        return [torch.device("cuda", i) for i in range(n_dev)], "real"
+    return [torch.device("cuda", 0)] * n_dev, "logical"
+
+
+def _same_point(a, b) -> bool:
+    """Projective equality of two extended points (X1·Z2 = X2·Z1,
+    Y1·Z2 = Y2·Z1), on the host's integers."""
+    from tendermint_tpu_torch.crypto.cuda import field as F
+
+    (x1, y1, z1), (x2, y2, z2) = ([F.limbs_to_int(c) for c in list(p)[:3]] for p in (a, b))
+    return z1 % F.P_INT != 0 and (x1 * z2 - x2 * z1) % F.P_INT == 0 \
+        and (y1 * z2 - y2 * z1) % F.P_INT == 0
+
+
+def _path_bound_ms(audit: "ShapeAudit", path: str, dev) -> float:
+    """The least time of every launch `path` made, summed: each launch's
+    bound (bytes or operations, `_bound`) at its shape, times its calls."""
+    total = 0.0
+    for (name, _shapes), rec in audit.seen.items():
+        calls = rec["calls"].get(path, 0)
+        if calls:
+            *_k, n_bytes, n_ops = _kernel_case(name, rec["inputs"], None, dev)
+            total += calls * _bound(n_bytes, n_ops)[0]
+    return total
+
+
+def _profiled(dev, fn) -> dict:
+    """One call of `fn` on the card: its wall, then, in a second call under
+    torch.profiler, the card's busy time and idle share and each ported
+    kernel's summed device ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = _device_events(fn)
+    busy = sum(ns for _, ns in events) / 1e9
+    return {
+        "wall_s": wall,
+        "device_busy_s": busy if events else None,
+        "device_idle_share": (1 - busy / wall) if events else None,
+        "device_ms": {k: sum(ns for name, ns in events if f"{k}_kernel" in name) / 1e6
+                      for k in EDWARDS_KERNELS},
+    }
+
+
+def drive_sharded(dev, entries, audit: ShapeAudit) -> dict:
+    """Phase 19: the sharded verifier (B6) on the card, at 4 and 3 shards:
+    the sharded kernel_eq against the unsharded one on one set of
+    operands, the tampered range through verify_commit_range on the mesh,
+    and the hub at its default max_batch over the 4-shard mesh."""
+    import torch
+
+    from tendermint_tpu_torch.crypto import verify_hub
+    from tendermint_tpu_torch.crypto.cuda import mesh, msm
+    from tendermint_tpu_torch.crypto.cuda import verify as V
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.types.validation import verify_commit_range
+
+    items = range_items(entries)
+    resolved = [V.resolve_ed25519(*it) for it in items]
+    rnd = random.Random(SEED + 19).randbytes(16 * len(items))
+
+    def operands(bucket):
+        return V._to_device(V.prepare_batch_eq(resolved, pad_to=bucket, rand_bytes=lambda n: rnd[:n]),
+                            dev)
+
+    # the unsharded call on the 8,192 bucket: its result, its R-side MSM
+    # (the MSM whose digits have 16 windows), launches, wall, device time
+    ops = operands(V._bucket(len(items)))
+    r_sides, real_msm = [], msm.msm
+
+    def msm_kept(points, digits):
+        out = real_msm(points, digits)
+        if digits.shape[0] == 16:
+            r_sides.append(out)
+        return out
+
+    msm.msm = msm_kept
+    try:
+        _launch_counts(reset=True)
+        with audit.recording(SH_UNSHARDED):
+            want = V.kernel_eq(*ops)
+        _sync(dev)
+    finally:
+        msm.msm = real_msm
+    if not bool(want[1]):
+        raise AssertionError("unsharded kernel_eq rejected the valid range")
+    unsharded = {"bucket": ops[1].shape[0], "launches": _launch_counts(),
+                 "bound_ms": _path_bound_ms(audit, SH_UNSHARDED, dev),
+                 **_profiled(dev, lambda: V.kernel_eq(*ops))}
+    (r_side,) = r_sides
+
+    out = {"sigs": len(items), "unsharded": unsharded, "meshes": {}}
+    for n_dev in SH_SHARDS:
+        devices, kind = _mesh_of(n_dev)
+        print(f"sharded: a mesh of {n_dev} {kind} shards ({torch.cuda.device_count()} card(s))")
+        bucket = V._bucket(len(items), n_dev)
+        sh_ops = ops if bucket == ops[1].shape[0] else operands(bucket)
+        kernel = V.make_sharded_kernel_eq(devices)
+        totals, real_reduce = [], V._reduce_partials
+        V._reduce_partials = lambda p: totals.append(real_reduce(p)) or totals[-1]
+        try:
+            _launch_counts(reset=True)
+            t0 = time.perf_counter()
+            with audit.recording(_sh_path("kernel_eq", n_dev)):
+                got = kernel(*sh_ops)
+            _sync(dev)
+            first_s = time.perf_counter() - t0
+            launches = _launch_counts()
+        finally:
+            V._reduce_partials = real_reduce
+        n = want[0].shape[0]
+        if not (torch.equal(got[0][:n], want[0]) and not got[0][n:].any()
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{n_dev} shards: the bitmap or eq_ok differs from the unsharded call")
+        if not _same_point(totals[0], r_side):
+            raise AssertionError(f"{n_dev} shards: the folded total is not the unsharded R-side MSM")
+        _require_all_launched(_sh_path("kernel_eq", n_dev), launches)
+        if launches["fe_pow22523"] != n_dev + 1 or launches["scan_blocks"] != n_dev + 1:
+            raise AssertionError(f"{n_dev} shards: B2/B3 launched {launches}, not {n_dev + 1} each")
+        rec = {"mesh": kind, "devices": [str(d) for d in devices], "bucket": bucket,
+               "shard_rows": bucket // n_dev, "first_wall_s": first_s, "launches": launches,
+               "bound_ms": _path_bound_ms(audit, _sh_path("kernel_eq", n_dev), dev),
+               **_profiled(dev, lambda: kernel(*sh_ops))}
+
+        # the tampered range of phase 4 through the funnel, every chunk
+        # forced onto the mesh: the sharded kernel_sig attributes it
+        bad = tamper(entries, TAMPER_COMMIT, TAMPER_VAL)
+        bad_items = range_items(bad)
+        bad_pos = TAMPER_COMMIT * (len(bad_items) // len(bad)) + TAMPER_VAL
+        dispatches, sig_calls = [], []
+        real_dispatch, real_sig = V._dispatch_and_collect, V.kernel_sig
+
+        def dispatch_kept(n_sigs, *a, **kw):
+            calls_before = len(sig_calls)
+            bitmap = real_dispatch(n_sigs, *a, **kw)
+            dispatches.append((n_sigs, bitmap, V.last_dispatch_info(), len(sig_calls) - calls_before))
+            return bitmap
+
+        V._dispatch_and_collect = dispatch_kept
+        V.kernel_sig = lambda *o: sig_calls.append(1) or real_sig(*o)
+        os.environ["TMTPU_FORCE_SHARDED"] = "1"
+        mesh._devices = devices
+        try:
+            _launch_counts(reset=True)
+            t0 = time.perf_counter()
+            with audit.recording(_sh_path("tampered", n_dev)):
+                _expect_failure(lambda: verify_commit_range(CHAIN_ID, bad, device=dev),
+                                TAMPER_COMMIT, TAMPER_VAL)
+            tampered_s = time.perf_counter() - t0
+        finally:
+            V._dispatch_and_collect, V.kernel_sig = real_dispatch, real_sig
+            del os.environ["TMTPU_FORCE_SHARDED"]
+            mesh.reset()
+        n_sigs, bitmap, info, shard_sigs = dispatches[0]
+        if n_sigs != len(bad_items) or bitmap[bad_pos] or int(bitmap.sum()) != n_sigs - 1:
+            raise AssertionError(f"{n_dev} shards: the sharded kernel_sig did not single out "
+                                 f"signature {bad_pos} of {n_sigs}")
+        if shard_sigs != n_dev or info is None or len(info["shards"]) != n_dev \
+                or sum(info["shards"]) != len(bad_items):
+            raise AssertionError(f"{n_dev} shards: dispatch {info}, {shard_sigs} kernel_sig calls")
+        rec["tampered"] = {"wall_s": tampered_s, "launches": _launch_counts(),
+                           "failed_index": TAMPER_COMMIT, "bad_position": bad_pos,
+                           "kernel_sig_calls": shard_sigs, "dispatch": info,
+                           "dispatches_after_the_range": len(dispatches) - 1}
+        out["meshes"][str(n_dev)] = rec
+
+    # the hub at its default max_batch over the 4-shard mesh
+    devices, kind = _mesh_of(4)
+    mesh._devices = devices
+    trace.configure(enabled=True)
+    trace.RECORDER.clear()
+    hub = verify_hub.acquire_hub(device=dev)
+    try:
+        _launch_counts(reset=True)
+        t0 = time.perf_counter()
+        with audit.recording(SH_HUB):
+            verify_commit_range(CHAIN_ID, entries, device=dev)
+        _sync(dev)
+        hub_s = time.perf_counter() - t0
+        stats = hub.stats()
+    finally:
+        verify_hub.release_hub()
+        mesh.reset()
+    if stats["mesh_devices"] != 4 or stats["effective_max_batch"] != 4 * hub.max_batch \
+            or hub.max_batch != 512:
+        raise AssertionError(f"hub over 4 shards: mesh {stats['mesh_devices']}, capacity "
+                             f"{stats['effective_max_batch']}, max_batch {hub.max_batch}")
+    spans = [s["attrs"] for s in trace.RECORDER.dump(subsystem="hub") if s["name"] == "dispatch"]
+    out["hub"] = {
+        "max_batch": hub.max_batch, "mesh_devices": stats["mesh_devices"],
+        "effective_max_batch": stats["effective_max_batch"], "wall_s": hub_s,
+        "launches": _launch_counts(),
+        "dispatches": [{"sigs": a["sigs"], "route": a["route"], "sharded": "shards" in a,
+                        "shards": a.get("shards")} for a in spans],
+    }
+    return out
+
+
+def _sharded_rows(dev, audit: ShapeAudit, rows: list[dict], by_path: dict) -> None:
+    """A timed `kernels` row for each B2 and B3 size and the largest B1
+    size that a sharded kernel_eq gave, where no row has that size yet
+    (the shard and the epilogue sizes; the audit holds every shape of
+    phase 19's paths, the tampered ranges' and the hub's too)."""
+    paths = [_sh_path("kernel_eq", n) for n in SH_SHARDS]
+    timed = {(r["name"], r.get("m")) for r in rows if r["name"] in EDWARDS_KERNELS}
+    largest: dict = {}
+    for (name, _shapes), rec in sorted(audit.seen.items()):
+        for path in paths:
+            if path not in rec["calls"]:
+                continue
+            kernel, m, *_ = _kernel_case(name, rec["inputs"], None, dev)
+            if name == "fe_mul":
+                if m > largest.get(path, (0, None))[0]:
+                    largest[path] = (m, rec["inputs"])
+            elif (name, m) not in timed:
+                _add_sharded_row(dev, name, rec["inputs"], path, rows, by_path)
+                timed.add((name, m))
+    for path, (m, inputs) in sorted(largest.items()):
+        if ("fe_mul", m) not in timed:
+            _add_sharded_row(dev, "fe_mul", inputs, path, rows, by_path)
+            timed.add(("fe_mul", m))
+
+
+def _add_sharded_row(dev, name, inputs, path, rows, by_path) -> None:
+    """A timed row on worst-case inputs of the shapes `path` gave `name`;
+    its launches are the path's own run's."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 19)
+    kernel, m, run, plain, n_bytes, n_ops = _kernel_case(name, inputs, gen, dev)
+    row = _kernel_row(kernel, m, run, plain, n_bytes, n_ops, reps=_AUDIT_REPS[name])
+    row["shape_of"] = path
+    row["launches"] = by_path[path][name]
+    row["main_path_device_ms"] = None
+    rows.append(row)
+
+
 def main() -> int:
     import torch
 
@@ -3535,7 +3837,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
 
+    t0 = time.perf_counter()
     rows = check_kernels(dev)
+    print(f"check_kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     entries = build_commits(N_VALS, N_COMMITS)
@@ -3567,11 +3871,17 @@ def main() -> int:
     print(json.dumps({"cutoff": cutoff}))
     hub = drive_hub(dev, entries, run["slice"])
     print(json.dumps({"hub": hub}))
+    t0 = time.perf_counter()
     bs = drive_blocksync(dev, audit)
+    bs["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"blocksync": bs}))
+    t0 = time.perf_counter()
     light = drive_light(dev, audit)
+    light["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"light": light}))
+    t0 = time.perf_counter()
     bls = drive_bls(dev)
+    bls["phase_s"] = time.perf_counter() - t0
     bls_rows = bls.pop("rows")
     print(json.dumps({"bls": bls}))
     t0 = time.perf_counter()
@@ -3591,6 +3901,10 @@ def main() -> int:
     ssf = drive_statesync_fleet(dev, audit, fleet_pairing)
     ssf["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"statesync_fleet": ssf}))
+    t0 = time.perf_counter()
+    sharded = drive_sharded(dev, entries, audit)
+    sharded["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"sharded": sharded}))
     # K7a and K7b at every shape phases 17-18 gave them, path and
     # worst-case inputs
     t0 = time.perf_counter()
@@ -3603,7 +3917,7 @@ def main() -> int:
         "verify_commit_range[hub, max_batch 8192]": hub["passes"][0]["launches"],
         "verify_commit_range[hub, cached]": hub["passes"][1]["launches"],
         "verify_commit_range[hub, max_batch 512]": hub["passes"][2]["launches"],
-        "blocksync[replay of the 1,024-block chain]": bs["launches"],
+        f"blocksync[replay of the {N_BS_BLOCKS}-block chain]": bs["launches"],
         "blocksync[tampered pass]": bs["tampered"]["launches"],
         "light[verify_adjacent_chain, 1,000 headers]": light["launches"],
         "light[client, sequential]": light["client_sequential"]["launches"],
@@ -3631,6 +3945,7 @@ def main() -> int:
         SSF_PERSIG: ssf["backfill_ab"]["per_sig"]["launches"],
         SSF_DEEP: ssf["backfill_ab"]["per_sig_deep"]["launches"],
         SSF_BLS: ssf["backfill_ab"]["bls_aggregate"]["launches"],
+        **_sharded_by_path(sharded),
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
@@ -3657,7 +3972,7 @@ def main() -> int:
     for name in EDWARDS_KERNELS:
         paths = {p for rec in held.get(name, []) for p in rec["calls"]}
         if not {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED, BS_MAIN, LC_MAIN,
-                LC_TAMPERED, SSF_DEEP} <= paths:
+                LC_TAMPERED, SSF_DEEP, *(_sh_path("kernel_eq", n) for n in SH_SHARDS)} <= paths:
             raise AssertionError(f"{name}: shapes recorded on {sorted(paths)} only")
     print(json.dumps({"shapes": held}))
     for row in rows:
@@ -3681,6 +3996,13 @@ def main() -> int:
     for row in sha_rows + fleet_rows:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
         rows.append(row)
+    # phase 19's new sizes: every B2 and B3 size, each path's largest B1
+    t0 = time.perf_counter()
+    n_rows = len(rows)
+    _sharded_rows(dev, audit, rows, by_path)
+    for row in rows[n_rows:]:
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
+    print(json.dumps({"sharded_rows": len(rows) - n_rows, "seconds": time.perf_counter() - t0}))
 
     print(json.dumps({"slice": run["slice"]}))
     print(json.dumps({"kernels": rows}))

@@ -160,6 +160,18 @@ def _measure_cutoff(device=DEFAULT_DEVICE) -> dict | None:
     }
 
 
+def mesh_parallelism(device=DEFAULT_DEVICE) -> int:
+    """The number of devices a dispatch from `device` shards over now
+    (crypto/cuda/verify._shard_device_count): 1 unless the mesh holds more
+    than one device of `device`'s type and sharding is not pinned off.
+    The VerifyHub scales its batch capacity and window by it. A CPU
+    device never reads CUDA: it sees only logical CPU shards set in
+    crypto/cuda/mesh.py."""
+    from .cuda.verify import _shard_device_count
+
+    return _shard_device_count(resolve(device))
+
+
 class AdaptiveBatchVerifier(BatchVerifier):
     """Collects ed25519/sr25519/bls12381 entries and verifies each scheme's
     partition on its own: Edwards by size (`kernel_eq` on `device` from
@@ -176,6 +188,10 @@ class AdaptiveBatchVerifier(BatchVerifier):
         #: scheme partitions took different routes); the VerifyHub stamps
         #: it on its dispatch spans
         self.last_route = "cpu"
+        #: {"devices": [...], "shards": [...]} when the last verify() ran
+        #: sharded over the mesh (real signatures per shard); None on one
+        #: device and on the host
+        self.last_dispatch = None
 
     def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
         if pub_key.TYPE not in _BATCHABLE:
@@ -188,6 +204,7 @@ class AdaptiveBatchVerifier(BatchVerifier):
         items = self._items
         results = [False] * len(items)
         routes = []
+        self.last_dispatch = None
         for part, run in ((_EDWARDS, self._verify_edwards), ((BLS12381,), self._verify_bls)):
             idxs = [i for i, it in enumerate(items) if it[0].TYPE in part]
             if not idxs:
@@ -210,9 +227,13 @@ class AdaptiveBatchVerifier(BatchVerifier):
 
     def _verify_edwards(self, items) -> tuple[list[bool], str]:
         if len(items) >= MIN_TPU_BATCH:
-            return self._on_device(
+            from .cuda.verify import last_dispatch_info
+
+            out = self._on_device(
                 lambda its: self._run(self._make_device_verifier(), its)[1], items
             )
+            self.last_dispatch = last_dispatch_info()
+            return out
         return self._run(CPUBatchVerifier(), items)[1], "cpu"
 
     def _verify_bls(self, items) -> tuple[list[bool], str]:

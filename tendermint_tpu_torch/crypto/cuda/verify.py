@@ -2,8 +2,7 @@
 preparation, the device steps `kernel_eq` and `kernel_sig`, chunked
 dispatch, and the `BatchVerifier` that crypto/batch.py hands out.
 
-The port of tendermint_tpu/crypto/tpu/verify.py (single device; the
-sharded kernels and the mesh are a later slice). Pipeline:
+The port of tendermint_tpu/crypto/tpu/verify.py. Pipeline:
 
   host:   parse signatures, range-check s < L, derive the challenge
           k = SHA-512(R ‖ A ‖ msg) mod L (ed25519) or the Merlin
@@ -19,12 +18,27 @@ MSM on its blocked path (kernel B3) and the window sums on a 16-aligned
 length. There is no probe choosing between a kernel and an XLA graph, as
 the reference's `_maybe_enable_pallas` does: on the card the kernels are
 the path, and an error is raised, not routed around.
+
+Sharding (the reference's `make_sharded_kernel_eq` / `make_sharded_kernel`,
+B6): when the mesh (crypto/cuda/mesh.py) holds more than one device of
+the caller's type and a chunk fills a floor bucket on every one of them,
+the chunk is padded to a bucket divisible by the mesh size and split into
+contiguous shards. Shard k goes to the mesh's device k, which decompresses
+its R points and reduces its R-side MSM to one partial point; the partials
+and the R masks are gathered to the first device, folded
+(`_reduce_partials`), and the epilogue — the unique keys, the grouped
+A-side MSM with zs·B, the identity check — runs there once. Every shard's
+work is issued before anything is read back. The devices may repeat:
+`[cuda:0] * 4` runs four logical shards on one card, one after another on
+its stream. There is no breaker and no degrade to a smaller mesh: a shard
+that fails makes the dispatch raise.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import threading
 from typing import Callable
 
 import numpy as np
@@ -33,7 +47,7 @@ import torch
 from .. import BatchVerifier, PubKey
 from ...device import DEFAULT_DEVICE
 from ...device import resolve as resolve_device
-from . import curve, msm
+from . import curve, mesh, msm
 from .curve import Point
 
 L = 2**252 + 27742317777372353535851937790883648493
@@ -80,9 +94,7 @@ def kernel_eq(ua_bytes, r_bytes, ga_digits, r_digits, zs_digits, s_valid, gidx):
     zeroed digits and decompression failures are masked to the identity,
     so neither perturbs the sum. Returns (ok_bitmap (N,), eq_ok ()): on
     eq_ok the bitmap IS the per-signature answer."""
-    ua_bytes, r_bytes, ga_digits, r_digits, zs_digits = (
-        x.to(torch.int32) for x in (ua_bytes, r_bytes, ga_digits, r_digits, zs_digits)
-    )
+    ua_bytes, r_bytes, r_digits = (x.to(torch.int32) for x in (ua_bytes, r_bytes, r_digits))
     dev = r_bytes.device
     g, n = ua_bytes.shape[0], r_bytes.shape[0]
     stacked, ok = curve.decompress(torch.cat([ua_bytes, r_bytes], dim=0))
@@ -91,18 +103,111 @@ def kernel_eq(ua_bytes, r_bytes, ga_digits, r_digits, zs_digits, s_valid, gidx):
     a_ok, r_ok = ok[:g], ok[g:]
     r_use = r_ok & s_valid
     ok_bitmap = a_ok[gidx.long()] & r_use
-
-    Am = curve.point_select(a_ok, curve.point_neg(A), curve.identity((g,), dev))
     Rm = curve.point_select(r_use, curve.point_neg(R), curve.identity((n,), dev))
-
-    # the A-group MSM carries the base point as one extra row (scalar zs)
-    bpt = curve.base_point((1,), dev)
-    ga = Point(*(torch.cat([c, b], dim=0) for c, b in zip(Am, bpt)))
-    ga_digits = torch.cat([ga_digits, zs_digits], dim=1)
-
-    acc = curve.point_add(msm.msm(ga, ga_digits), msm.msm(Rm, r_digits))
+    acc = curve.point_add(_a_side_msm(A, a_ok, ga_digits, zs_digits), msm.msm(Rm, r_digits))
     eq_ok = curve.is_identity(curve.mul_by_cofactor(acc))
     return ok_bitmap, eq_ok
+
+
+def _a_side_msm(A: Point, a_ok, ga_digits, zs_digits) -> Point:
+    """Σ_g c_g·(−A_g) + zs·B: the grouped A-side MSM, the keys that did
+    not decompress masked to the identity, the base point carried as one
+    extra row with scalar zs."""
+    dev = A.x.device
+    Am = curve.point_select(a_ok, curve.point_neg(A), curve.identity((A.x.shape[0],), dev))
+    bpt = curve.base_point((1,), dev)
+    ga = Point(*(torch.cat([c, b], dim=0) for c, b in zip(Am, bpt)))
+    digits = torch.cat([ga_digits, zs_digits], dim=1).to(torch.int32)
+    return msm.msm(ga, digits)
+
+
+# -- B6: the batch equation and the per-signature kernel over a mesh ----------------
+
+
+def _local_partial(r_bytes, r_digits, s_valid) -> tuple[torch.Tensor, Point]:
+    """One shard's share of the batch equation (the reference's
+    `local_partial`): decompress its R points, mask the unusable ones to
+    the identity, and reduce its R-side MSM Σ zᵢ·(−Rᵢ) to one partial
+    point. A shard whose length is not a multiple of 16 (a mesh of three:
+    8,193 rows in shards of 2,731) is padded with identity rows of digit
+    0 after the decompression, which adds nothing to the sum and keeps
+    its MSM on the blocked path (B3) where the reference's falls back to
+    a scan over all points. Returns (r_use (n,), partial 4 × (32,))."""
+    r_bytes, r_digits = r_bytes.to(torch.int32), r_digits.to(torch.int32)
+    dev, n = r_bytes.device, r_bytes.shape[0]
+    R, r_ok = curve.decompress(r_bytes)
+    r_use = r_ok & s_valid
+    Rm = curve.point_select(r_use, curve.point_neg(R), curve.identity((n,), dev))
+    pad = -n % msm._BLOCK
+    if pad:
+        Rm = Point(*(torch.cat([c, i]) for c, i in zip(Rm, curve.identity((pad,), dev))))
+        r_digits = torch.cat([r_digits, r_digits.new_zeros((r_digits.shape[0], pad))], dim=1)
+    return r_use, msm.msm(Rm, r_digits)
+
+
+def _reduce_partials(partials: Point) -> Point:
+    """Fold the shards' partial points, 4 × (n_dev, 32), into one: a
+    pairwise tree on a power-of-two mesh, a chain of point_add in shard
+    order (0, 1, …, n_dev − 1) otherwise, as the reference folds them."""
+    n_dev = partials.x.shape[0]
+    if n_dev & (n_dev - 1) == 0:
+        return msm._tree_reduce_points(partials, dim=0)
+    total = Point(*(c[0] for c in partials))
+    for k in range(1, n_dev):
+        total = curve.point_add(total, Point(*(c[k] for c in partials)))
+    return total
+
+
+def _shard_bounds(rows: int, n_dev: int) -> list[tuple[int, int]]:
+    if rows % n_dev:
+        raise ValueError(f"{rows} signatures do not split into {n_dev} equal shards")
+    s = rows // n_dev
+    return [(k * s, (k + 1) * s) for k in range(n_dev)]
+
+
+def make_sharded_kernel_eq(devices) -> Callable:
+    """`kernel_eq` over a mesh of `devices` (the reference's
+    `make_sharded_kernel_eq`; torch devices in place of a Mesh, repeats
+    allowed). Takes `kernel_eq`'s operands on any device, with the
+    signature axis divisible by the mesh size; shard k of r_bytes,
+    s_valid (rows) and r_digits (columns) goes to devices[k]. The partial
+    points and R masks are gathered to devices[0], where the fold and the
+    epilogue run once and the result lies."""
+    devices = [torch.device(d) for d in devices]
+    home = devices[0]
+
+    def kernel(ua_bytes, r_bytes, ga_digits, r_digits, zs_digits, s_valid, gidx):
+        shards = [
+            _local_partial(r_bytes[lo:hi].to(dev), r_digits[:, lo:hi].to(dev), s_valid[lo:hi].to(dev))
+            for dev, (lo, hi) in zip(devices, _shard_bounds(r_bytes.shape[0], len(devices)))
+        ]
+        # the gather: one partial point and one mask per shard
+        r_use = torch.cat([use.to(home) for use, _ in shards])
+        partials = Point(*(torch.stack([part[c].to(home) for _, part in shards]) for c in range(4)))
+        total = _reduce_partials(partials)
+        A, a_ok = curve.decompress(ua_bytes.to(home, torch.int32))
+        acc = curve.point_add(total, _a_side_msm(A, a_ok, ga_digits.to(home), zs_digits.to(home)))
+        ok_bitmap = a_ok[gidx.to(home).long()] & r_use
+        return ok_bitmap, curve.is_identity(curve.mul_by_cofactor(acc))
+
+    return kernel
+
+
+def make_sharded_kernel(devices) -> Callable:
+    """`kernel_sig` with the batch axis sharded over `devices` (the
+    reference's `make_sharded_kernel`): shard k of every operand runs
+    `kernel_sig` on devices[k]; the bitmaps are gathered to devices[0]."""
+    devices = [torch.device(d) for d in devices]
+    home = devices[0]
+
+    def kernel(*ops):
+        outs = [
+            kernel_sig(*(x[lo:hi].to(dev) for x in ops))
+            for dev, (lo, hi) in zip(devices, _shard_bounds(ops[0].shape[0], len(devices)))
+        ]
+        return torch.cat([o.to(home) for o in outs])
+
+    return kernel
 
 
 class ResolvedSig:
@@ -261,21 +366,113 @@ def prepare_batch_eq(
     )
 
 
-def _bucket(n: int) -> int:
+def _bucket(n: int, multiple: int = 1) -> int:
+    """The padded size of an n-signature chunk: a power of two ≥ 64,
+    rounded up to `multiple` (the mesh size on a sharded dispatch)."""
     b = _MIN_BUCKET
     while b < n:
         b *= 2
+    if b % multiple:
+        b = ((b + multiple - 1) // multiple) * multiple
     return b
 
 
-def _is_warm_bucket(m: int) -> bool:
-    """True when `m` is a shape the bucket ladder can produce (a power of
-    two ≥ _MIN_BUCKET)."""
-    return m >= _MIN_BUCKET and m & (m - 1) == 0
+def _is_warm_bucket(m: int, multiple: int = 1) -> bool:
+    """True when `m` is a shape the bucket ladder can produce: some power
+    of two ≥ _MIN_BUCKET rounded up to `multiple`."""
+    if m < _MIN_BUCKET:
+        return False
+    multiple = max(1, multiple)
+    b = _MIN_BUCKET
+    while True:
+        rounded = ((b + multiple - 1) // multiple) * multiple
+        if rounded == m:
+            return True
+        if rounded > m:
+            return False
+        b *= 2
 
 
 def _to_device(arrays, device: torch.device) -> tuple[torch.Tensor, ...]:
     return tuple(torch.from_numpy(np.array(a)).to(device) for a in arrays)
+
+
+def _shard_devices(device: torch.device) -> list[torch.device]:
+    """The devices a sharded dispatch from `device` may span now: the
+    mesh when it holds more than one device of `device`'s type, else [].
+    TMTPU_MESH_MAX_DEVICES caps the mesh inside the registry (1 pins one
+    device)."""
+    devs = mesh.devices_for(device)
+    return devs if len(devs) > 1 else []
+
+
+def _shard_device_count(device: torch.device) -> int:
+    """The mesh size a dispatch from `device` shards over (1: one device)."""
+    return max(1, len(_shard_devices(device)))
+
+
+#: device tuple -> (sharded kernel_eq, sharded kernel_sig), keyed by the
+#: exact list of devices, repeats included
+_sharded_kernels: dict[tuple, tuple[Callable, Callable]] = {}
+
+
+def _get_sharded(devices: list[torch.device]) -> tuple[Callable, Callable]:
+    key = tuple(str(d) for d in devices)
+    kernels = _sharded_kernels.get(key)
+    if kernels is None:
+        kernels = _sharded_kernels[key] = (
+            make_sharded_kernel_eq(devices), make_sharded_kernel(devices)
+        )
+    return kernels
+
+
+class _Selection:
+    """One dispatch plan: the kernels, the padded bucket, and the mesh
+    (None on one device)."""
+
+    __slots__ = ("kernel_eq", "kernel_sig", "bucket", "devices")
+
+    def __init__(self, kernel_eq, kernel_sig, bucket, devices):
+        self.kernel_eq = kernel_eq
+        self.kernel_sig = kernel_sig
+        self.bucket = bucket
+        self.devices = devices
+
+    @property
+    def n_dev(self) -> int:
+        return len(self.devices) if self.devices else 1
+
+
+def _select_kernels(n: int, device: torch.device) -> _Selection:
+    """The plan for an n-signature chunk from `device`: sharded over the
+    mesh when every shard still fills a floor bucket (or
+    TMTPU_FORCE_SHARDED=1), with the bucket rounded up to a multiple of
+    the mesh size; on `device` alone otherwise."""
+    devices = _shard_devices(device)
+    n_dev = len(devices)
+    if n_dev > 1 and (os.environ.get("TMTPU_FORCE_SHARDED") == "1" or n >= _MIN_BUCKET * n_dev):
+        kernel_eq_sharded, kernel_sig_sharded = _get_sharded(devices)
+        return _Selection(kernel_eq_sharded, kernel_sig_sharded, _bucket(n, n_dev), devices)
+    return _Selection(kernel_eq, kernel_sig, _bucket(n), None)
+
+
+def _shard_fill(n_real: int, bucket: int, n_dev: int) -> list[int]:
+    """Real (non-padding) signatures on each contiguous shard of a
+    `bucket`-row chunk."""
+    s = bucket // n_dev
+    return [max(0, min(s, n_real - k * s)) for k in range(n_dev)]
+
+
+#: this thread's last sharded dispatch (the hub's dispatch spans read it):
+#: thread-local, so concurrent verifiers do not misattribute each other
+_dispatch_local = threading.local()
+
+
+def last_dispatch_info() -> dict | None:
+    """{"devices": [...], "shards": [...]}: the device id and the real
+    signatures of each shard of this thread's last dispatch, summed over
+    its chunks; None when it ran on one device."""
+    return getattr(_dispatch_local, "info", None)
 
 
 def _dispatch_and_collect(
@@ -288,24 +485,32 @@ def _dispatch_and_collect(
     the loop runs, so chunk k+1's host work (SHA-512, bigint prep)
     overlaps chunk k's device work — launches return before the card
     finishes, and no result is read back until every chunk is issued.
-    Every chunk of a multi-chunk batch shares the full chunk's bucket. A
-    chunk whose equation fails is attributed by `kernel_sig`, that chunk
-    alone."""
+    Every chunk of a multi-chunk batch shares the full chunk's bucket and
+    plan (`_select_kernels`). A chunk whose equation fails is attributed
+    by the plan's `kernel_sig`, that chunk alone. An error, on one device
+    or in any shard, raises."""
+    _dispatch_local.info = None
     if n == 0:
         return np.zeros(0, bool)
-    bucket = _bucket(min(n, _MAX_BUCKET))
-    if not _is_warm_bucket(bucket):
-        raise RuntimeError(f"dispatch shape {bucket} is not a bucket")
+    sel = _select_kernels(min(n, _MAX_BUCKET), device)
+    if not _is_warm_bucket(sel.bucket, sel.n_dev):
+        raise RuntimeError(f"dispatch shape {sel.bucket} is not a bucket (mesh of {sel.n_dev})")
     in_flight = []
     for i in range(0, n, _MAX_BUCKET):
         chunk = get_entries(i, min(i + _MAX_BUCKET, n))
-        ops = _to_device(prepare_batch_eq(chunk, pad_to=bucket, rand_bytes=rand_bytes), device)
-        in_flight.append((chunk, kernel_eq(*ops)))
+        ops = _to_device(prepare_batch_eq(chunk, pad_to=sel.bucket, rand_bytes=rand_bytes), device)
+        in_flight.append((chunk, sel.kernel_eq(*ops)))
+    ids = [str(d) for d in sel.devices] if sel.devices else None
+    shards = [0] * len(ids) if ids else None
     outs = []
     for chunk, (bitmap, eq_ok) in in_flight:
         if not bool(eq_ok):
-            bitmap = kernel_sig(*_to_device(prepare_resolved(chunk, pad_to=bucket), device))
+            bitmap = sel.kernel_sig(*_to_device(prepare_resolved(chunk, pad_to=sel.bucket), device))
         outs.append(bitmap.cpu().numpy()[: len(chunk)])
+        if ids:
+            shards = [a + b for a, b in zip(shards, _shard_fill(len(chunk), sel.bucket, len(ids)))]
+    if ids:
+        _dispatch_local.info = {"devices": ids, "shards": shards}
     return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
 
@@ -316,7 +521,9 @@ def verify_resolved(
     rand_bytes: RandBytes | None = None,
 ) -> np.ndarray:
     """Batch-equation verification with per-signature attribution: a
-    bool bitmap of length len(entries)."""
+    bool bitmap of length len(entries). Sharded over the mesh when it
+    holds more than one device of `device`'s type and the batch fills a
+    floor bucket on each (TMTPU_FORCE_SHARDED=1 drops the size gate)."""
     dev = resolve_device(device)
     return _dispatch_and_collect(len(entries), lambda i, j: entries[i:j], dev, rand_bytes)
 
@@ -359,6 +566,7 @@ class DeviceBatchVerifier(BatchVerifier):
             self._entries.append(None)
 
     def verify(self) -> tuple[bool, list[bool]]:
+        _dispatch_local.info = None  # no dispatch when nothing resolved
         results = [False] * len(self._entries)
         if any(e is not None for e in self._entries):
             bitmap = verify_resolved(

@@ -55,10 +55,20 @@ Differences from the reference, by design:
   * `verify_aggregate` runs the pairing check on the caller's device
     (the hub lends only its verdict cache), as the reference runs it on
     the caller's thread;
+  * the batch capacity always scales by the mesh size: the reference's
+    `mesh_scale` knob (TMTPU_MESH_SCALE, `[verify_hub]`) waits for the
+    node config that reads it;
   * not ported yet: the verifyd remote route (with crypto/verifyd.py,
-    for per-signature batches and aggregates alike), mesh scaling (the
-    batch capacity is `max_batch` on one device), and per-tenant packing
-    stats (verifyd).
+    for per-signature batches and aggregates alike) and per-tenant
+    packing stats (verifyd).
+
+Mesh awareness: `max_batch` is a per-device target. Each dispatch
+iteration reads how many devices a dispatch from the hub's device shards
+over (crypto/batch `mesh_parallelism`, from crypto/cuda/mesh.py) and
+scales the pack capacity and the adaptive window's ramp by it, so a mesh
+of four is fed batches of 4 × max_batch. Sharded dispatches stamp each
+shard's device and real signatures onto their hub.dispatch spans. A hub
+on the CPU never reads CUDA.
 """
 
 
@@ -164,6 +174,10 @@ class VerifyHub:
         self.window_s = max(0.0, window_ms) / 1e3
         self.cache_size = max(0, cache_size)
         self.adaptive = adaptive
+        #: the mesh size, refreshed once per dispatch iteration: batch
+        #: capacity and window scale by it, since a mesh fed one device's
+        #: batches runs each shard at 1/n occupancy
+        self._mesh_n = 1
 
         self._cv = threading.Condition()
         # two FIFO lanes; dispatch packs live first, then backfill
@@ -439,6 +453,8 @@ class VerifyHub:
                 s["dispatched_sigs"] / s["dispatches"] if s["dispatches"] else 0.0
             )
             s["ewma_occupancy"] = self._ewma_occupancy
+            s["mesh_devices"] = float(self._mesh_n)
+            s["effective_max_batch"] = float(self._effective_max())
             uptime = max(time.monotonic() - self._started_at, 1e-9)
             s["dispatch_rate"] = s["dispatches"] / uptime
             requests = s["submitted"] + s["cache_hits"] + s["coalesced"]
@@ -446,6 +462,17 @@ class VerifyHub:
         return s
 
     # -- scheduling internals --------------------------------------------
+
+    def _refresh_mesh(self) -> int:
+        """The mesh size, read once per dispatch iteration."""
+        from .batch import mesh_parallelism
+
+        self._mesh_n = mesh_parallelism(self.device)
+        return self._mesh_n
+
+    def _effective_max(self) -> int:
+        """The batch capacity: one `max_batch` per device of the mesh."""
+        return self.max_batch * self._mesh_n
 
     def _window(self) -> float:
         """Adaptive micro-batch window: scale the configured ceiling by
@@ -457,8 +484,9 @@ class VerifyHub:
         if occ <= 1.0:
             return 0.0
         # linear ramp: full window once recent batches average >= 1/8 of
-        # a device batch (past that, latency is already amortized)
-        frac = min(1.0, (occ - 1.0) / max(self.max_batch / 8.0, 1.0))
+        # a device batch (past that, latency is already amortized); the
+        # device batch is max_batch per device of the mesh
+        frac = min(1.0, (occ - 1.0) / max(self._effective_max() / 8.0, 1.0))
         return self.window_s * frac
 
     def _queued(self) -> int:
@@ -467,6 +495,8 @@ class VerifyHub:
     def _dispatch_loop(self) -> None:
         self._worker_ids.add(threading.get_ident())
         while True:
+            # outside the lock: submitters keep filling the lanes
+            self._refresh_mesh()
             with self._cv:
                 while self._running and not self._queued():
                     self._cv.wait(0.2)
@@ -475,8 +505,9 @@ class VerifyHub:
                         return
                     continue
                 # micro-batch window: linger for more arrivals unless the
-                # batch is device-sized, someone is blocked (urgent), or
-                # the hub is draining for shutdown
+                # batch is device-sized (one max_batch per device of the
+                # mesh), someone is blocked (urgent), or the hub is
+                # draining for shutdown
                 if self._running:
                     oldest = min(
                         next(iter(q.values())).enqueued_at
@@ -487,7 +518,7 @@ class VerifyHub:
                     while (
                         self._running
                         and not self._urgent
-                        and self._queued() < self.max_batch
+                        and self._queued() < self._effective_max()
                     ):
                         remaining = deadline - time.monotonic()
                         if remaining <= 0:
@@ -530,9 +561,10 @@ class VerifyHub:
             fut.add_done_callback(lambda _f: self._slots.release())
 
     def _pack_batch(self) -> list[_Pending]:
-        """Pop up to the batch capacity, live lane FIRST — catch-up
-        traffic can never displace the hot path. Caller holds _cv."""
-        cap = self.max_batch
+        """Pop up to the mesh-scaled batch capacity, live lane FIRST —
+        catch-up traffic can never displace the hot path. Caller holds
+        _cv."""
+        cap = self._effective_max()
         batch: list[_Pending] = []
         for lane in LANES:
             q = self._queues[lane]
@@ -570,11 +602,14 @@ class VerifyHub:
         if trace.is_enabled():
             # per-batch dispatch span + per-trace execute spans, stamped
             # with where THIS batch ran (the thread-local route that
-            # _verify_batch stashed)
+            # _verify_batch stashed); a sharded dispatch adds each shard's
+            # device id and real signatures
             route = getattr(self._route_local, "route", "cpu")
+            disp = getattr(self._route_local, "dispatch", None)
             t1 = time.monotonic()
             trace.emit(
-                "hub", "dispatch", duration_s=t1 - t0, sigs=len(batch), route=route
+                "hub", "dispatch", duration_s=t1 - t0, sigs=len(batch), route=route,
+                **({"devices": disp["devices"], "shards": disp["shards"]} if disp else {}),
             )
             for p in batch:
                 if p.traces:
@@ -608,6 +643,7 @@ class VerifyHub:
         # where this batch ran, for the dispatch/execute spans: set per
         # worker thread, and "cpu" on the host-side paths
         self._route_local.route = "cpu"
+        self._route_local.dispatch = None
         if groups:
             with self._cv:
                 for scheme, idxs in groups.items():
@@ -625,6 +661,7 @@ class VerifyHub:
             if bv.last_route != "cpu" or len(groups) == 1:
                 # a mixed dispatch that reached the device reads as such
                 self._route_local.route = bv.last_route
+                self._route_local.dispatch = getattr(bv, "last_dispatch", None)
             for i, good in zip(idxs, bitmap):
                 results[i] = bool(good)
         return results

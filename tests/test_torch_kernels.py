@@ -23,7 +23,8 @@ block and the reference's buckets) of lengths across the padding edges
 mixed in each launch, packed after a prefix of n % 16 bytes so that
 messages start at every alignment, and is held against hashlib too; it
 refuses a misaligned buffer, and the words-level `sha256_batch` has no
-kernel.
+kernel. The sharded batch equation (B6) runs over 4 and 3 logical shards
+of the card and is held against the unsharded one.
 """
 
 import numpy as np
@@ -255,6 +256,42 @@ def test_msm_on_card_is_limb_identical_to_cpu(card):
         )
         for a, b in zip(on_cpu, on_card):
             assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("n_dev", [4, 3])
+def test_sharded_kernel_eq_on_logical_shards_equals_unsharded(card, n_dev):
+    """The sharded batch equation (B6) over logical shards of the card
+    gives the unsharded kernel_eq's bitmap and eq_ok, on a valid batch and
+    on one with a corrupted signature, and its sharded kernel_sig the
+    unsharded bitmap; B2 and B3 launch once a shard and once for the
+    epilogue."""
+    from tendermint_tpu_torch.crypto.cuda import _build
+    from tendermint_tpu_torch.crypto.cuda import verify as V
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+
+    privs = [Ed25519PrivKey(bytes([i + 1]) * 32) for i in range(16)]
+    items = [(privs[i % 16].pub_key().bytes(), b"shard-%d" % i, privs[i % 16].sign(b"shard-%d" % i))
+             for i in range(200)]
+    bad = list(items)
+    p, m, s = bad[150]
+    bad[150] = (p, m, s[:40] + bytes([s[40] ^ 1]) + s[41:])
+    devices = [card] * n_dev
+    kernel_eq, kernel_sig = V.make_sharded_kernel_eq(devices), V.make_sharded_kernel(devices)
+    bucket = V._bucket(256, n_dev)
+    for batch in (items, bad):
+        entries = [V.resolve_ed25519(*it) for it in batch]
+        ops = V._to_device(V.prepare_batch_eq(entries, pad_to=bucket), card)
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        got = kernel_eq(*ops)
+        torch.cuda.synchronize()
+        launches = {k: _build.KERNELS[k].launches for k in ("fe_pow22523", "scan_blocks")}
+        want = V.kernel_eq(*ops)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool(got[1]) == (batch is items)
+        assert launches == {"fe_pow22523": n_dev + 1, "scan_blocks": n_dev + 1}
+        sig_ops = V._to_device(V.prepare_resolved(entries, pad_to=bucket), card)
+        assert torch.equal(kernel_sig(*sig_ops), V.kernel_sig(*sig_ops))
 
 
 def _pairing_inputs(m: int, npairs: int, device, worst: bool):
