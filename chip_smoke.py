@@ -75,26 +75,27 @@ failure exits non-zero, nothing is caught and carried past):
      the reactor must punish that height twice with a fatal PeerError
      naming the peer, request it again, and apply nothing from it on;
  13. the light client (run after phase 12, before the audit): bench.py's
-     light-client bench (BASELINE config 2) on the port — 1,000 signed
-     headers of the 150-validator set, built on the host as bench.py
-     builds them (seconds printed), then one verify_adjacent_chain over
-     the 999 after the first on the card, at the cutoff measured in phase
-     9: one verify_commit_range of 100,899 signatures, which must route
-     "cuda" and run as 13 `kernel_eq` chunks that all hold, with B1–B3
-     launched and the trusted head at height 1,000; prints headers/s, the
+     light-client bench (BASELINE config 2) on the port, cut from 1,000 to
+     500 signed headers of the 150-validator set (to make room for phases
+     20-22), built on the host as bench.py builds them (seconds printed),
+     then one verify_adjacent_chain over the 499 after the first on the
+     card, at the cutoff measured in phase 9: one verify_commit_range of
+     50,399 signatures, which must route "cuda" and run as 7 `kernel_eq`
+     chunks that all hold, with B1–B3 launched and the trusted head at
+     height 500; prints headers/s, the
      wall, the range's share of it and the launches beside
      `CPUBatchVerifier(parallel=True)` over the same triples. Then a
      LightClient over a list provider of the chain with one honest
-     witness: sequential (eight verify_adjacent_chain windows of ≤ 128
+     witness: sequential (four verify_adjacent_chain windows of ≤ 128
      headers, each routed by the cutoff's rule, their routes and walls
      printed) and skipping (one verify_non_adjacent through
      verify_commit_light_trusting; its routes printed, not asserted).
-     Then a tampered pass: the commit for height 990 carries a flipped
-     signature bit, at place 99,793 of the range, in the last chunk:
-     verify_adjacent_chain must raise VerificationError naming height 990
+     Then a tampered pass: the commit for height 490 carries a flipped
+     signature bit, at place 49,293 of the range, in the last chunk:
+     verify_adjacent_chain must raise VerificationError naming height 490
      and the signature, that chunk alone must fail and kernel_sig must
      run once. Last a divergence: a witness serves a header at height
-     1,000 with another app hash, signed by the same 150 keys; the client
+     500 with another app hash, signed by the same 150 keys; the client
      must raise Divergence, keep nothing past its anchor, and report one
      LightClientAttackEvidence to the primary, whose bytes decode back
      equal; prints its attributed validators;
@@ -227,14 +228,64 @@ failure exits non-zero, nothing is caught and carried past):
      the least time of its launches (each launch's bound at its shape,
      summed); each B2 and B3 size of a sharded kernel_eq (a shard, the
      epilogue) and its largest B1 size gets a timed `kernels` row;
+ 20. the verifyd sidecar (run after phase 19): a VerifyDaemon on cuda:0
+     on its own event-loop thread in this process (so its launches and
+     input shapes are this process's), serving worker processes
+     (`python -c "import chip_smoke; chip_smoke._verifyd_worker(...)"`,
+     port modules only, each a hub on the card at the cutoff phase 9
+     measured). (a) bench.py's bench_verifyd(4, 1000): 4 workers of 1,000
+     single ed25519 signatures, client hubs at their defaults (max_batch
+     512, window 2 ms), through a daemon at the CLI's defaults, then each
+     worker on its own hub: sigs/s, p50/p99 a signature, attach counts
+     (1 for the sidecar against 4 local), the daemon's occupancy, its
+     cross-client packs and the route of its batches; every dispatch of
+     the sidecar workers must route "verifyd". (b) phase 3's 54 commits in
+     4 contiguous ranges, one a worker, each through verify_commit_range
+     on a hub at max_batch 8,192, released together into a daemon at
+     max_batch 8,192 whose 1,000 ms window lets them meet: a dispatch of
+     at least 2 tenants must run kernel_eq on the card with B1-B3
+     launched here; then phase 4's tampered signature in its worker's
+     range: that worker must name commit 20 and signature 5, the other
+     tenants, packed in the same dispatch, stay true. (c) the daemon is
+     stopped mid-flood and restarted on the same path: every verdict
+     stays right, each worker counts fall-backs and a breaker opening,
+     and re-adopts the daemon within TMTPU_VERIFYD_BREAKER_RESET (1 s) of
+     the restart. (d) a 21-validator bls12381 aggregate commit through
+     verify_commit over the sidecar: one remote aggregate, K7a and K7b
+     launched once each here; a tampered aggregate (validator 7 signs
+     other bytes) answers False. (e) `python -m tendermint_tpu_torch.cli
+     verifyd --stats` against the running daemon, and a CLI daemon
+     started once, queried and stopped with SIGTERM (exit 0). Normal runs
+     count no daemon error, hub error or fall-back, and the daemon's
+     batches run on the card;
+ 21. the tx front door (after phase 20): bench.py's bench_tx_flood(10_000,
+     2) as it sets it (20,000 seeded envelope txs of 10,000 senders; hub
+     max_batch 512, window 2 ms, cache 65,536; ingress depth 2,048, 64
+     verify workers, a 250 ms park; the pool sized to the flood): admitted
+     tx/s, CheckTx p50/p99, shed rate, parked/expired/adopted, sig_failed,
+     the hub's occupancy and its batches' route split (the host, under
+     the cutoff). Then the same txs and 20 copies with a flipped signature
+     bit, all submitted at once, through a hub at max_batch 8,192 (window
+     500 ms) and an ingress as deep as the flood with 8,192 workers:
+     nothing shed, every batch at or above the cutoff on the card with
+     B1-B3 launched, and the admitted txs equal, byte for byte and in
+     order, to the same txs through the port's ingress with no hub;
+ 22. the evidence pool (after phase 21): a 150-validator kvstore chain of
+     8 blocks; a duplicate vote (height 3) and a LunaticProvider attack
+     (51 colluders forge height 6 against common height 2), each with a
+     tampered copy, through EvidencePool(device="cuda") in a running hub:
+     verdicts, errors and the routes (each check's signatures are under
+     the cutoff: the host); then the reactor carries both valid
+     evidences from one pool to another over Channels;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
      block-sync replay and its tampered pass (phase 12, two-chunk ranges
-     included), the light paths (phase 13: the 13-chunk range, the
+     included), the light paths (phase 13: the 7-chunk range, the
      client's windows, the tampered range), the 48-height per-signature
-     backfill of phase 18 and the sharded paths of phase 19 gave B1, B2
-     and B3 is held
+     backfill of phase 18, the sharded paths of phase 19, the daemon's
+     packed ranges (phase 20) and the wide tx flood (phase 21) gave B1,
+     B2 and B3 is held
      against the plain version with torch.equal, on the inputs the path
      gave and on worst-case inputs of the same shapes; phase 2's sizes
      must be sizes the main path gives; the largest size of each kernel
@@ -246,8 +297,9 @@ after (the block-sync reactor verifies in a worker thread; its launches
 count too). Prints the card's name and power limit, `breakdown`,
 `sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `light`, `bls`,
 `statesync`, `sha256`, `light_fleet`, `statesync_fleet`, `sharded`,
-`fleet_pairing_shapes`, `shapes`, `sharded_rows`, `slice`, `kernels` and
-`script_wall_s`
+`verifyd`, `tx_ingress`, `evidence`, `fleet_pairing_shapes` (K7a/K7b at
+phases 17-18's and 20's shapes), `shapes`, `sharded_rows`, `slice`,
+`kernels` and `script_wall_s`
 JSON lines, and last {"ok": true,
 "device": {...}}. Imports nothing of JAX or of the JAX
 package. Build output goes to build/torch_ext/.
@@ -287,14 +339,15 @@ BS_TAMPER_HEIGHT, BS_TAMPER_VAL = 100, 5
 BS_TAMPER_TOP = 2 * BS_WINDOW + 1
 BS_TIMEOUT_S = 600
 # phase 13, bench.py's light-client bench (BASELINE config 2): 150
-# validators of power 10, 1,000 signed headers, one verify_adjacent_chain
-N_LC_HEADERS = 1000
+# validators of power 10, 500 signed headers (cut from bench.py's 1,000 to
+# make room for phases 20-22), one verify_adjacent_chain
+N_LC_HEADERS = 500
 LC_CHAIN_ID = "light-bench"
 LC_BASE_TS = 1_700_000_000_000_000_000
 # the tampered pass: the commit for LC_TAMPER_HEIGHT carries one flipped
-# signature bit; its place in the range, (990 - 2) * 101 + 5 = 99,793,
-# lies past 12 * 8,192, in the last kernel_eq chunk
-LC_TAMPER_HEIGHT, LC_TAMPER_VAL = 990, 5
+# signature bit; its place in the range, (490 - 2) * 101 + 5 = 49,293,
+# lies past 6 * 8,192, in the last kernel_eq chunk
+LC_TAMPER_HEIGHT, LC_TAMPER_VAL = 490, 5
 # phase 14, bench.py's bench_commit_ab(150, 4), its bls_aggregate half:
 # 150 bls12381 validators, 2 commits (cut from 4, to keep the script in its
 # time limit with phase 19: each costs ~7 s to sign and ~18 s to verify
@@ -2109,7 +2162,7 @@ def drive_light(dev, audit: ShapeAudit) -> dict:
             "per_commit_search_batches": len(tlog.batches) - 1,
             "per_commit_search_routes": sorted({r for _n, r in tlog.batches[1:]}),
             "wall_s": tampered_wall,
-            # the failed range (link checks, 13 chunks, kernel_sig), then
+            # the failed range (link checks, its chunks, kernel_sig), then
             # the reference's per-commit search that names the height
             "range_s": tlog.returned[0] - t_bad,
             "per_commit_search_s": t_bad + tampered_wall - tlog.returned[0],
@@ -3806,6 +3859,900 @@ def _add_sharded_row(dev, name, inputs, path, rows, by_path) -> None:
     rows.append(row)
 
 
+# -- phases 20-22: the verifyd sidecar, the tx front door, the evidence pool --
+
+# phase 20: bench.py's bench_verifyd(4, 1000) (:2313-2530): 4 worker
+# processes of 1,000 single ed25519 signatures each, client hubs at their
+# defaults (max_batch 512, window 2 ms), through one daemon at the CLI's
+# defaults, then each on its own hub on the card; then phase 3's 54
+# commits split into VD_WORKERS contiguous ranges through a daemon at
+# max_batch 8,192 whose window lets the ranges meet
+VD_WORKERS = 4
+VD_SIGS = 1000
+VD_PACK_MAX_BATCH = 8192
+VD_PACK_WINDOW_MS = 1000.0
+VD_BREAKER_RESET_S = 1.0
+VD_AGG_VALS = 21
+VD_WORKER_TIMEOUT_S = 300.0
+VD_PACKED = "verifyd[4 commit ranges packed]"
+VD_TAMPERED = "verifyd[4 commit ranges packed, tampered]"
+VD_AGG = "verifyd[bls aggregate, 21 validators]"
+# phase 21: bench.py's bench_tx_flood(10_000, 2) (:1574-1709), then the
+# same txs plus TX_TAMPERED flipped signatures fed wide enough to reach
+# the card
+TX_CLIENTS, TX_PER_CLIENT = 10_000, 2
+TX_TAMPERED = 20
+TX_CARD_WINDOW_MS = 500.0
+TX_CARD = "tx_ingress[hub max_batch 8,192]"
+# phase 22: a 150-validator kvstore chain of EV_BLOCKS blocks; a duplicate
+# vote at EV_DUP_HEIGHT and a lunatic attack at EV_ATTACK_HEIGHT against
+# EV_COMMON_HEIGHT by 51 colluders (> 1/3 of the power)
+EV_BLOCKS = 8
+EV_DUP_HEIGHT, EV_COMMON_HEIGHT, EV_ATTACK_HEIGHT = 3, 2, 6
+EV_TRAITORS = 51
+EV_CHAIN_ID = "ev-chain"
+
+
+class _DaemonThread:
+    """A VerifyDaemon on its own event loop and thread in this process, so
+    its kernel launches and input shapes are this process's. `stop()` is
+    abrupt for a client: in-flight requests are cancelled and connections
+    closed without a reply, as a killed daemon process would."""
+
+    def __init__(self, sock: str, **kw):
+        import threading
+
+        self.sock = sock
+        self.kw = kw
+        self.daemon = None
+        self._loop = None
+        self._stop_ev = None
+        self._started = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="verifyd-smoke", daemon=True)
+        self._error = None
+
+    def start(self) -> "_DaemonThread":
+        self._thread.start()
+        if not self._started.wait(120) or self._error is not None:
+            raise AssertionError(f"verifyd did not start: {self._error!r}")
+        return self
+
+    def _run(self) -> None:
+        import asyncio
+
+        from tendermint_tpu_torch.crypto.verifyd import VerifyDaemon
+
+        async def main():
+            self._loop = asyncio.get_running_loop()
+            self._stop_ev = asyncio.Event()
+            self.daemon = VerifyDaemon(self.sock, **self.kw)
+            await self.daemon.start()
+            self._started.set()
+            await self._stop_ev.wait()
+            await self.daemon.stop()
+
+        try:
+            asyncio.run(main())
+        except BaseException as e:  # reported by start()/stop()
+            self._error = e
+            self._started.set()
+
+    def stop(self) -> None:
+        self._loop.call_soon_threadsafe(self._stop_ev.set)
+        self._thread.join(30)
+        if self._thread.is_alive() or self._error is not None:
+            raise AssertionError(f"verifyd did not stop: {self._error!r}")
+
+
+class _Workers:
+    """Worker processes (`_verifyd_worker`), one per spec, driven by lines:
+    each prints READY when set up, runs a step on GO and prints RESULT
+    with its JSON record."""
+
+    def __init__(self, specs: list[dict], env_extra: dict | None = None):
+        import queue
+        import threading
+
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo, **(env_extra or {}))
+        env.pop("TMTPU_VERIFYD_SOCK", None)
+        self.procs, self.lines, self.errs = [], [], []
+        for spec in specs:
+            p = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; chip_smoke._verifyd_worker(sys.argv[1])",
+                 json.dumps(spec)],
+                cwd=repo, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, bufsize=1,
+            )
+            q: queue.Queue = queue.Queue()
+            err: list = []
+            threading.Thread(target=lambda f=p.stdout, q=q: [q.put(x) for x in f] + [q.put(None)],
+                             daemon=True).start()
+            threading.Thread(target=lambda f=p.stderr, e=err: e.extend(f), daemon=True).start()
+            self.procs.append(p)
+            self.lines.append(q)
+            self.errs.append(err)
+
+    def expect(self, tag: str, timeout: float = VD_WORKER_TIMEOUT_S) -> list[str]:
+        import queue
+
+        out = []
+        deadline = time.monotonic() + timeout
+        for i, q in enumerate(self.lines):
+            while True:
+                try:
+                    line = q.get(timeout=max(0.1, deadline - time.monotonic()))
+                except queue.Empty:
+                    line = None
+                if line is None:
+                    self.close(kill=True)
+                    tail = "".join(self.errs[i])[-3000:]
+                    raise AssertionError(f"verifyd worker {i} gave no {tag}:\n{tail}")
+                if line.startswith(tag):
+                    out.append(line[len(tag):].strip())
+                    break
+        return out
+
+    def results(self) -> list[dict]:
+        return [json.loads(x) for x in self.expect("RESULT")]
+
+    def go(self) -> None:
+        for p in self.procs:
+            p.stdin.write("GO\n")
+            p.stdin.flush()
+
+    def close(self, kill: bool = False) -> None:
+        for p in self.procs:
+            if kill and p.poll() is None:
+                p.kill()
+            try:
+                p.wait(60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        bad = [i for i, p in enumerate(self.procs) if p.returncode != 0]
+        if bad and not kill:
+            raise AssertionError(f"verifyd workers {bad} exited "
+                                 f"{[self.procs[i].returncode for i in bad]}:\n"
+                                 + "".join(self.errs[bad[0]])[-3000:])
+
+
+def _worker_range(n_workers: int, worker: int) -> tuple[int, int]:
+    """Worker `worker`'s contiguous slice [lo, hi) of phase 3's commits."""
+    base, extra = divmod(N_COMMITS, n_workers)
+    lo = worker * base + min(worker, extra)
+    return lo, lo + base + (1 if worker < extra else 0)
+
+
+def _verifyd_worker(spec_json: str) -> None:
+    """One node process of phase 20 (run by `_Workers`): a hub on the card,
+    routed through the daemon's socket, that runs `spec["modes"]` in turn
+    (each with a fresh client, breaker and CLIENT_STATS): "flood" (bench.py's
+    _verifyd_worker through the sidecar), "local" (the same on its own hub,
+    after its own attach), "range" (its slice of phase 3's commits, honest
+    then tampered) and "death" (a flood across the daemon's death)."""
+    import torch
+
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import verifyd as vdmod
+    from tendermint_tpu_torch.libs import trace
+
+    spec = json.loads(spec_json)
+    dev = torch.device(spec["device"])
+    batch.MIN_TPU_BATCH = spec["min_tpu_batch"]  # the cutoff phase 9 measured
+    trace.configure(enabled=True)
+    runs = {"flood": _vd_flood, "local": _vd_flood, "range": _vd_range, "death": _vd_death}
+    for mode in spec["modes"]:
+        vdmod.reset_clients()
+        runs[mode](spec, dev, "" if mode == "local" else spec["sock"])
+
+
+def _vd_step(wid: int) -> None:
+    """Say READY, then wait for the smoke process's GO."""
+    print("READY", flush=True)
+    line = sys.stdin.readline().strip()
+    if line != "GO":
+        raise SystemExit(f"worker {wid}: expected GO, got {line!r}")
+
+
+def _vd_report(rec: dict, wid: int) -> None:
+    from tendermint_tpu_torch.crypto import backend_telemetry as bt
+    from tendermint_tpu_torch.crypto import verifyd as vdmod
+    from tendermint_tpu_torch.libs import trace
+
+    rec.update(worker=wid, remote=dict(vdmod.CLIENT_STATS),
+               attach_attempts=bt.BACKEND["attach_attempts"],
+               compile_cache_hits=bt.BACKEND["compile_cache_hits"],
+               dispatch_routes=_dispatch_routes())
+    trace.RECORDER.clear()
+    print("RESULT " + json.dumps(rec), flush=True)
+
+
+def _vd_flood(spec: dict, dev, sock: str) -> None:
+    """bench.py's _verifyd_worker: one key, n single signatures."""
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+
+    wid = spec["worker"]
+    if not sock:
+        batch.warm_backend(dev)  # the local baseline pays its own attach
+    priv = Ed25519PrivKey((wid + 1).to_bytes(4, "big") * 8)
+    pub = priv.pub_key()
+    tag = b"vd-bench-%d-" % (wid + 1)
+    items = [(tag + b"%d" % i, priv.sign(tag + b"%d" % i)) for i in range(spec["sigs"])]
+    hub = vh.VerifyHub(device=dev, verifyd_sock=sock, window_ms=2.0, cache_size=0)
+    hub.start()
+    _vd_step(wid)
+    lats: list = []
+    try:
+        futs = []
+        t0 = time.perf_counter()
+        for msg, sig in items:
+            t_sub = time.perf_counter()
+            fut = hub.submit_nowait(pub, msg, sig)
+            fut.add_done_callback(lambda f, t=t_sub: lats.append(time.perf_counter() - t))
+            futs.append(fut)
+        hub.flush()
+        wrong = sum(1 for f in futs if f.result(timeout=300) is not True)
+        dt = time.perf_counter() - t0
+        stats = hub.stats()
+    finally:
+        hub.stop()
+    _vd_report({"sigs": len(items), "wrong": wrong, "dt_s": dt, "sigs_per_s": len(items) / dt,
+                "p50_ms": _pct(lats, 0.50) * 1e3, "p99_ms": _pct(lats, 0.99) * 1e3,
+                "verify_errors": stats["verify_errors"], "hub_dispatches": stats["dispatches"]}, wid)
+
+
+def _vd_range(spec: dict, dev, sock: str) -> None:
+    """This worker's slice of phase 3's commits through verify_commit_range
+    on a hub at max_batch 8,192: honest, then with phase 4's tampered
+    signature where the slice holds it."""
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+    from tendermint_tpu_torch.crypto import verifyd as vdmod
+    from tendermint_tpu_torch.types.validation import InvalidCommitError, verify_commit_range
+
+    wid = spec["worker"]
+    lo, hi = spec["commits"]
+    tc, tv = spec["tamper"]
+    vals, keys = tt.make_validator_set(spec["n_vals"])
+    entries = []
+    for h in range(lo + 1, hi + 1):  # build_commits' heights, this slice only
+        bid = tt.make_block_id(b"smoke-%d" % h)
+        entries.append((vals, bid, h, tt.make_commit(CHAIN_ID, h, 0, bid, vals, keys)))
+    bad = tamper(entries, tc - lo, tv) if lo <= tc < hi else entries
+    vh.acquire_hub(device=dev, max_batch=VD_PACK_MAX_BATCH, cache_size=0, verifyd_sock=sock)
+    try:
+        for label, ents in (("honest", entries), ("tampered", bad)):
+            _vd_step(wid)
+            before = dict(vdmod.CLIENT_STATS)
+            t0 = time.perf_counter()
+            rec = {"step": label, "commits": [lo, hi], "sigs": len(range_items(ents))}
+            try:
+                verify_commit_range(CHAIN_ID, ents, device=dev)
+                rec["outcome"] = "ok"
+            except InvalidCommitError as e:
+                rec["outcome"] = "invalid"
+                rec["failed_commit"] = lo + getattr(e, "failed_index", -1 - lo)
+                rec["error"] = str(e)
+            rec["wall_s"] = time.perf_counter() - t0
+            rec["remote_dispatches"] = (vdmod.CLIENT_STATS["remote_dispatches"]
+                                        - before["remote_dispatches"])
+            rec["verify_errors"] = vh.running_hub().stats()["verify_errors"]
+            _vd_report(rec, wid)
+    finally:
+        vh.release_hub()
+
+
+def _vd_death(spec: dict, dev, sock: str) -> None:
+    """Flood in batches of 64 (one of them tampered) until the daemon's
+    death has forced a fall-back and its restart a re-adoption."""
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+    from tendermint_tpu_torch.crypto import verifyd as vdmod
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+
+    wid = spec["worker"]
+    priv = Ed25519PrivKey((wid + 101).to_bytes(4, "big") * 8)
+    pub = priv.pub_key()
+    hub = vh.VerifyHub(device=dev, verifyd_sock=sock, window_ms=2.0, cache_size=0)
+    hub.start()
+    _vd_step(wid)
+    wrong = n = rounds = 0
+    t_fallback = t_readopt = None
+    deadline = time.monotonic() + 60.0
+    try:
+        while time.monotonic() < deadline and t_readopt is None:
+            items = []
+            for i in range(64):
+                msg = b"vd-death-%d-%d-%d" % (wid, rounds, i)
+                items.append((pub, msg, priv.sign(msg) if i else b"\x01" * 64))
+            before = dict(vdmod.CLIENT_STATS)
+            got = hub.verify_many(items, timeout=120)
+            wrong += sum(1 for i, ok in enumerate(got) if ok != (i != 0))
+            n += len(items)
+            rounds += 1
+            now = time.time()
+            if t_fallback is None and vdmod.CLIENT_STATS["remote_fallbacks"] > before["remote_fallbacks"]:
+                t_fallback = now
+            elif (t_fallback is not None
+                  and vdmod.CLIENT_STATS["remote_dispatches"] > before["remote_dispatches"]):
+                t_readopt = now
+        stats = hub.stats()
+    finally:
+        hub.stop()
+    breaker = vdmod.client_for(sock).breaker
+    _vd_report({"sigs": n, "rounds": rounds, "wrong": wrong, "t_fallback": t_fallback,
+                "t_readopt": t_readopt, "breaker_opens": breaker.opens,
+                "breaker_state": breaker.state, "verify_errors": stats["verify_errors"]}, wid)
+
+
+def _dispatch_log(hub) -> list:
+    """Wrap `hub._verify_batch` (this instance only) to log each dispatch's
+    signatures, distinct tenants and route; returns the live log."""
+    log: list = []
+    real = hub._verify_batch
+
+    def verify_batch(batch):
+        out = real(batch)
+        tenants = set()
+        for p in batch:
+            tenants.update(p.tenants or ())
+        log.append({"sigs": len(batch), "tenants": len(tenants),
+                    "route": getattr(hub._route_local, "route", "cpu")})
+        return out
+
+    hub._verify_batch = verify_batch
+    return log
+
+
+def _daemon_checks(tel: dict, what: str, dev, ran_kernel_eq: bool = True) -> None:
+    """The normal-run invariants of the daemon's telemetry: no error, and,
+    once a batch of this process has run kernel_eq, its device as the
+    backend's active kind ("cuda" on the card)."""
+    if tel["daemon"]["errors"] or tel["hub"]["verify_errors"]:
+        raise AssertionError(f"{what}: daemon errors {tel['daemon']} / hub {tel['hub']}")
+    if ran_kernel_eq and tel["backend"]["active_kind"] != dev.type:
+        raise AssertionError(f"{what}: backend {tel['backend']}")
+
+
+def _flood_summary(recs: list[dict]) -> dict:
+    wall = max(r["dt_s"] for r in recs)
+    return {
+        "sigs_per_s": sum(r["sigs"] for r in recs) / wall,
+        "p50_ms": sorted(r["p50_ms"] for r in recs)[len(recs) // 2],
+        "p99_ms": max(r["p99_ms"] for r in recs),
+        "attach_attempts": sum(r["attach_attempts"] for r in recs),
+        "remote_dispatches": sum(r["remote"]["remote_dispatches"] for r in recs),
+        "remote_fallbacks": sum(r["remote"]["remote_fallbacks"] for r in recs),
+        "worker_dispatch_routes": sorted({x for r in recs for x in r["dispatch_routes"]}),
+    }
+
+
+def drive_verifyd(dev, audit: "ShapeAudit", pairing: "PairingAudit") -> dict:
+    """Phase 20: the verifyd sidecar in this process, serving worker
+    processes (see the module docstring). B1-B3's input shapes on the
+    packed ranges go to `audit`, K7a/K7b's on the aggregate to
+    `pairing`."""
+    import signal
+    import tempfile
+
+    from tendermint_tpu_torch.crypto import backend_telemetry as bt
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+    from tendermint_tpu_torch.crypto import verifyd as vdmod
+    from tendermint_tpu_torch.libs import trace
+
+    trace.configure(enabled=True)
+    sock = os.path.join(tempfile.mkdtemp(prefix="vd-smoke-"), "vd.sock")
+    cutoff = batch.MIN_TPU_BATCH
+    spec = {"sock": sock, "min_tpu_batch": cutoff, "device": str(dev), "n_vals": N_VALS,
+            "tamper": [TAMPER_COMMIT, TAMPER_VAL]}
+    out: dict = {"sock_dir_tmp": True, "min_tpu_batch": cutoff}
+
+    # one wave of worker processes runs (a) to (c) in turn; between the
+    # steps they wait at READY while this process reconfigures its daemon
+    ws = _Workers([dict(spec, worker=w, sigs=VD_SIGS, commits=_worker_range(VD_WORKERS, w),
+                        modes=["flood", "local", "range", "death"])
+                   for w in range(VD_WORKERS)],
+                  env_extra={"TMTPU_VERIFYD_BREAKER_RESET": str(VD_BREAKER_RESET_S)})
+    d = None
+    try:
+        # (a) bench_verifyd(4, 1000): through the sidecar, then local
+        t0 = time.perf_counter()
+        d = _DaemonThread(sock, device=dev).start()
+        log = BatchLog()
+        ws.expect("READY")
+        with log.recording():
+            ws.go()
+            side = ws.results()
+        tel = d.daemon.telemetry()
+        d.stop()
+        d = None
+        ws.expect("READY")
+        ws.go()
+        local = ws.results()
+        for r in side + local:
+            if r["wrong"] or r["verify_errors"] or r["remote"]["remote_fallbacks"]:
+                raise AssertionError(f"bench_verifyd worker: {r}")
+        # its batches are under the cutoff: the host, unless an earlier
+        # phase of this process ran kernel_eq
+        _daemon_checks(tel, "bench_verifyd", dev, ran_kernel_eq=False)
+        a = {"sidecar": _flood_summary(side), "local": _flood_summary(local)}
+        a["speedup_vs_local"] = a["sidecar"]["sigs_per_s"] / a["local"]["sigs_per_s"]
+        a["attach_count_sidecar"] = tel["backend"]["attach_attempts"] + a["sidecar"]["attach_attempts"]
+        a["attach_count_local"] = a["local"]["attach_attempts"]
+        a["daemon"] = {"requests": tel["daemon"]["requests"], "sigs": tel["daemon"]["sigs"],
+                       "shed": tel["daemon"]["shed"], "batch_occupancy": tel["hub"]["mean_occupancy"],
+                       "cross_client_packs": tel["hub"]["cross_tenant_dispatches"],
+                       "dispatches": tel["hub"]["dispatches"], "backend": tel["backend"]}
+        a["daemon_batches"] = {r: sum(1 for _n, rr in log.batches if rr == r)
+                               for r in sorted({rr for _n, rr in log.batches})}
+        a["daemon_batch_sigs"] = [n for n, _r in log.batches]
+        if (a["sidecar"]["remote_dispatches"] == 0
+                or set(a["sidecar"]["worker_dispatch_routes"]) != {"verifyd"}):
+            raise AssertionError(f"the sidecar workers did not route through verifyd: {a['sidecar']}")
+        # one attach a process that owns the card (none on the host)
+        want = (1, VD_WORKERS) if dev.type == "cuda" else (0, 0)
+        if (a["attach_count_sidecar"], a["attach_count_local"]) != want:
+            raise AssertionError(f"attach counts {a['attach_count_sidecar']} / {a['attach_count_local']}")
+        a["phase_s"] = time.perf_counter() - t0
+        out["bench_verifyd"] = a
+
+        # (b) phase 3's commits in VD_WORKERS ranges, packed by one daemon
+        t0 = time.perf_counter()
+        d = _DaemonThread(sock, device=dev, max_batch=VD_PACK_MAX_BATCH,
+                          window_ms=VD_PACK_WINDOW_MS, cache_size=0).start()
+        dlog = _dispatch_log(d.daemon.hub)
+        steps = {}
+        for label, path in (("honest", VD_PACKED), ("tampered", VD_TAMPERED)):
+            ws.expect("READY")
+            del dlog[:]
+            log = BatchLog()
+            _launch_counts(reset=True)
+            with audit.recording(path), log.recording():
+                t1 = time.perf_counter()
+                ws.go()
+                recs = ws.results()
+                wall = time.perf_counter() - t1
+            _sync(dev)
+            steps[label] = {"wall_s": wall, "workers": recs, "dispatches": list(dlog),
+                            "batches": log.batches, "chunks_held": log.chunks,
+                            "kernel_sig": log.kernel_sig, "launches": _launch_counts()}
+        tel = d.daemon.telemetry()
+        d.stop()
+        d = None
+        _daemon_checks(tel, "packed ranges", dev)
+        for label, st in steps.items():
+            packed = [x for x in st["dispatches"] if x["tenants"] >= 2 and x["route"] == "cuda"]
+            if not packed:
+                raise AssertionError(f"{label}: no cross-tenant dispatch ran kernel_eq: {st['dispatches']}")
+            _require_all_launched(f"verifyd packed ranges ({label})", st["launches"])
+            for r in st["workers"]:
+                if r["remote_dispatches"] < 1 or r["remote"]["remote_fallbacks"] or r["verify_errors"]:
+                    raise AssertionError(f"{label}: worker {r}")
+                lo, hi = r["commits"]
+                if label == "tampered" and lo <= TAMPER_COMMIT < hi:
+                    if (r["outcome"] != "invalid" or r["failed_commit"] != TAMPER_COMMIT
+                            or f"index {TAMPER_VAL}" not in r["error"]):
+                        raise AssertionError(f"tampered worker: {r}")
+                elif r["outcome"] != "ok":
+                    raise AssertionError(f"{label}: worker {r}")
+        out["packed_ranges"] = {
+            "daemon_max_batch": VD_PACK_MAX_BATCH, "daemon_window_ms": VD_PACK_WINDOW_MS,
+            "ranges": [_worker_range(VD_WORKERS, w) for w in range(VD_WORKERS)],
+            "range_sigs": [r["sigs"] for r in steps["honest"]["workers"]],
+            **steps, "cross_client_packs": tel["hub"]["cross_tenant_dispatches"],
+            "phase_s": time.perf_counter() - t0,
+        }
+
+        # (c) the daemon dies mid-flood, then restarts on the same path
+        t0 = time.perf_counter()
+        d = _DaemonThread(sock, device=dev).start()
+        ws.expect("READY")
+        ws.go()
+        time.sleep(0.5)
+        d.stop()
+        d = None
+        time.sleep(0.3)
+        d = _DaemonThread(sock, device=dev).start()
+        restarted = time.time()
+        recs = ws.results()
+        tel = d.daemon.telemetry()
+        d.stop()
+        d = None
+    except BaseException:
+        ws.close(kill=True)
+        if d is not None:
+            d.stop()
+        raise
+    ws.close()
+    for r in recs:
+        if (r["wrong"] or r["verify_errors"] or r["remote"]["remote_fallbacks"] < 1
+                or r["breaker_opens"] < 1 or r["t_readopt"] is None):
+            raise AssertionError(f"daemon death: worker {r}")
+        r["readopt_after_restart_s"] = r["t_readopt"] - restarted
+        if r["readopt_after_restart_s"] > VD_BREAKER_RESET_S + 1.0:
+            raise AssertionError(f"re-adopted {r['readopt_after_restart_s']:.2f} s after the restart")
+    out["daemon_death"] = {"breaker_reset_s": VD_BREAKER_RESET_S, "workers": recs,
+                           "restarted_daemon": tel["daemon"], "phase_s": time.perf_counter() - t0}
+
+    # (d) one BLS aggregate commit through the sidecar, and a tampered one
+    from dataclasses import replace
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto import bls
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing
+    from tendermint_tpu_torch.types.block import aggregate_commit
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    t0 = time.perf_counter()
+    vals, keys = tt.make_validator_set(VD_AGG_VALS, key_types=("bls12381",), seed=b"vd-bls")
+    bid = tt.make_block_id(b"vd-agg")
+    per_sig = tt.make_commit(CHAIN_ID, 1, 0, bid, vals, keys)
+    agg = aggregate_commit(per_sig, vals)
+    sigs = [cs.signature for cs in per_sig.signatures]
+    sigs[AB_TAMPER_VAL] = keys[vals.validators[AB_TAMPER_VAL].address].sign(b"not the vote")
+    bad = replace(agg, agg_sig=bls.aggregate_signatures(sigs))
+    d = _DaemonThread(sock, device=dev).start()
+    vdmod.reset_clients()
+    vh.acquire_hub(device=dev, verifyd_sock=sock)
+    try:
+        _launch_counts(reset=True)
+        t1 = time.perf_counter()
+        with pairing.recording(VD_AGG):
+            verify_commit(CHAIN_ID, vals, bid, 1, agg, device=dev)
+        honest_s = time.perf_counter() - t1
+        honest = {"remote": dict(vdmod.CLIENT_STATS), "launches": _launch_counts(reset=True)}
+        t1 = time.perf_counter()
+        _expect_aggregate_failure(lambda: verify_commit(CHAIN_ID, vals, bid, 1, bad, device=dev))
+        tampered_s = time.perf_counter() - t1
+        tampered = {"remote": dict(vdmod.CLIENT_STATS), "launches": _launch_counts()}
+        tel = d.daemon.telemetry()
+    finally:
+        vh.release_hub()
+        vdmod.reset_clients()
+        d.stop()
+    for st, n in ((honest, 1), (tampered, 2)):
+        if st["remote"]["remote_agg_dispatches"] != n or st["remote"]["remote_fallbacks"]:
+            raise AssertionError(f"aggregate through verifyd: {st['remote']}")
+    for name in (bls_pairing.MILLER.name, bls_pairing.FINAL_EXP.name):
+        if honest["launches"][name] != 1 or tampered["launches"][name] != 1:
+            raise AssertionError(f"aggregate launches {honest['launches']} / {tampered['launches']}")
+    _daemon_checks(tel, "aggregate", dev)
+    out["aggregate"] = {"validators": VD_AGG_VALS, "honest_s": honest_s, "tampered_s": tampered_s,
+                        "honest": honest, "tampered": tampered,
+                        "daemon_agg_requests": tel["daemon"]["agg_requests"],
+                        "phase_s": time.perf_counter() - t0}
+
+    # (e) the CLI: a CLI daemon started as a subprocess (it starts while
+    # `--stats` queries the in-process daemon), which answers one
+    # remote_stats and exits 0 on SIGTERM
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "tendermint_tpu_torch.cli", "verifyd"]
+    sock2 = os.path.join(os.path.dirname(sock), "cli.sock")
+    proc = subprocess.Popen(cli + ["--sock", sock2, "--device", dev.type], cwd=repo,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        d = _DaemonThread(sock, device=dev).start()
+        try:
+            st = subprocess.run(cli + ["--sock", sock, "--stats"], cwd=repo, capture_output=True,
+                                text=True, timeout=120)
+        finally:
+            d.stop()
+        if st.returncode != 0 or json.loads(st.stdout)["protocol_version"] != vdmod.PROTOCOL_VERSION:
+            raise AssertionError(f"cli verifyd --stats: rc {st.returncode}: {st.stderr[-2000:]}")
+        cli_tel = None
+        deadline = time.monotonic() + 120
+        while cli_tel is None and proc.poll() is None and time.monotonic() < deadline:
+            client = vdmod.VerifydClient(sock2)  # a fresh breaker each poll
+            cli_tel = client.remote_stats()
+            client.close()
+            if cli_tel is None:
+                time.sleep(0.2)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if cli_tel is None or rc != 0:
+        raise AssertionError(f"cli verifyd daemon: stats {cli_tel}, exit {rc}: "
+                             f"{proc.stderr.read()[-2000:]}")
+    out["cli"] = {"stats_rc": st.returncode, "daemon_exit_on_sigterm": rc,
+                  "cli_daemon_backend": cli_tel["backend"], "phase_s": time.perf_counter() - t0}
+    out["this_process_backend"] = dict(bt.BACKEND, active_kind=bt.ACTIVE["kind"])
+    return out
+
+
+# -- phase 21 -----------------------------------------------------------------
+
+
+def _tx_app():
+    from tendermint_tpu_torch.abci import types as abci
+    from tendermint_tpu_torch.abci.application import BaseApplication
+
+    class FloodApp(BaseApplication):
+        """bench.py's FloodApp: priority from the tx's last byte."""
+
+        def check_tx(self, req):
+            return abci.ResponseCheckTx(priority=req.tx[-1] if req.tx else 0, gas_wanted=1)
+
+    return FloodApp()
+
+
+async def _tx_run(txs: list, *, depth: int, workers: int, park_ms: float,
+                  burst: int | None) -> dict:
+    """bench.py's _bench_tx_flood_async on the port: open-loop bursts of
+    `burst` (None: every tx in one tick), drain, and the fields it
+    reports, with the admitted txs in their insertion order."""
+    import asyncio
+
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.config import MempoolConfig
+    from tendermint_tpu_torch.mempool.ingress import TxIngress
+    from tendermint_tpu_torch.mempool.pool import PriorityMempool
+
+    n = len(txs)
+    cfg = MempoolConfig(size=n + 16, max_txs_bytes=1 << 30, cache_size=2 * n + 16)
+    cfg.ingress.nonce_park_timeout_ms = park_ms
+    cfg.ingress.verify_workers = workers
+    cfg.ingress.depth = depth
+    pool = PriorityMempool(cfg, LocalClient(_tx_app()))
+    ingress = TxIngress(cfg.ingress, pool)
+    await ingress.start()
+    lats: list = []
+
+    def on_done(fut, t_sub):
+        if fut.exception() is None:
+            lats.append(time.perf_counter() - t_sub)
+
+    try:
+        t0 = time.perf_counter()
+        step = burst or n
+        for i in range(0, n, step):
+            for tx in txs[i:i + step]:
+                t_sub = time.perf_counter()
+                ingress.submit_nowait(tx, source="client").add_done_callback(
+                    lambda f, t=t_sub: on_done(f, t))
+            await asyncio.sleep(0)
+        deadline = time.perf_counter() + 300.0
+        while (ingress.occupancy > 0 or ingress.parked_count() > 0) and time.perf_counter() < deadline:
+            await asyncio.sleep(0.01)
+        dt = time.perf_counter() - t0
+        if ingress.occupancy or ingress.parked_count():
+            raise AssertionError(f"the ingress did not drain: {ingress.occupancy} in flight")
+        await asyncio.sleep(0)  # the last futures' done-callbacks run here
+        stats = dict(ingress.stats)
+        admitted = int(pool.stats["admitted"])
+        return {
+            "submitted_total": n, "admitted": admitted, "admitted_tx_per_s": admitted / dt,
+            "checktx_p50_ms": _pct(lats, 0.50) * 1e3, "checktx_p99_ms": _pct(lats, 0.99) * 1e3,
+            "shed": int(stats["shed"]), "shed_rate": stats["shed"] / n,
+            "parked": int(stats["parked"]), "park_expired": int(stats["park_expired"]),
+            "park_adopted": int(stats["park_adopted"]), "sig_failed": int(stats["sig_failed"]),
+            "flood_dt_s": dt,
+            "order": [w.tx for w in sorted(pool._txs.values(), key=lambda w: w.seq)],
+        }
+    finally:
+        await ingress.stop()
+        pool.close()
+
+
+def _split_by_route(batches: list) -> dict:
+    out: dict = {}
+    for n, route in batches:
+        rec = out.setdefault(route, {"batches": 0, "sigs": 0})
+        rec["batches"] += 1
+        rec["sigs"] += n
+    return out
+
+
+def drive_tx_flood(dev, audit: "ShapeAudit") -> dict:
+    """Phase 21: the tx front door (see the module docstring)."""
+    import asyncio
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+
+    out: dict = {"min_tpu_batch": batch.MIN_TPU_BATCH}
+    t0 = time.perf_counter()
+    txs = tt.make_envelope_flood(TX_CLIENTS, TX_PER_CLIENT)
+    bad_txs = tt.make_envelope_flood(TX_CLIENTS, TX_PER_CLIENT, tampered={
+        (c, 1) for c in range(0, TX_CLIENTS, TX_CLIENTS // TX_TAMPERED)})
+    flipped = [b for a, b in zip(txs, bad_txs) if a != b]
+    out["sign_s"] = time.perf_counter() - t0
+    if len(flipped) != TX_TAMPERED:
+        raise AssertionError(f"{len(flipped)} flipped txs")
+
+    # (a) bench_tx_flood(10_000, 2) as bench.py sets it
+    log = BatchLog()
+    vh.acquire_hub(device=dev, max_batch=512, window_ms=2.0, cache_size=65536)
+    try:
+        with log.recording():
+            a = asyncio.run(_tx_run(txs, depth=2048, workers=64, park_ms=250.0, burst=256))
+        hs = vh.running_hub().stats()
+    finally:
+        vh.release_hub()
+    a.pop("order")
+    a["hub_occupancy"] = hs["mean_occupancy"]
+    a["hub_backfill_sigs"] = hs["lane_backfill_dispatched"]
+    a["hub_verify_errors"] = hs["verify_errors"]
+    a["routes"] = _split_by_route(log.batches)
+    if hs["verify_errors"] or a["sig_failed"]:
+        raise AssertionError(f"bench_tx_flood: {a}")
+    out["bench_tx_flood"] = a
+
+    # (b) the same txs plus the flipped ones, wide enough for the card,
+    # against the host path (no hub)
+    wide = txs + flipped
+    log = BatchLog()
+    vh.acquire_hub(device=dev, max_batch=VD_PACK_MAX_BATCH, window_ms=TX_CARD_WINDOW_MS,
+                   cache_size=0)
+    try:
+        _launch_counts(reset=True)
+        with audit.recording(TX_CARD), log.recording():
+            card = asyncio.run(_tx_run(wide, depth=len(wide), workers=VD_PACK_MAX_BATCH,
+                                       park_ms=250.0, burst=None))
+        _sync(dev)
+        launches = _launch_counts()
+        hs = vh.running_hub().stats()
+    finally:
+        vh.release_hub()
+    host = asyncio.run(_tx_run(wide, depth=len(wide), workers=VD_PACK_MAX_BATCH,
+                               park_ms=250.0, burst=None))
+    wide_batches = [(n, r) for n, r in log.batches if n >= batch.MIN_TPU_BATCH]
+    if not wide_batches or any(r != "cuda" for _n, r in wide_batches):
+        raise AssertionError(f"hub dispatches at or above the cutoff: {log.batches}")
+    _require_all_launched("tx ingress at max_batch 8,192", launches)
+    if card["shed"] or host["shed"] or hs["verify_errors"]:
+        raise AssertionError(f"wide flood: shed {card['shed']} / {host['shed']}, {hs}")
+    if card["sig_failed"] != TX_TAMPERED or host["sig_failed"] != TX_TAMPERED:
+        raise AssertionError(f"sig_failed {card['sig_failed']} / {host['sig_failed']}")
+    if card["order"] != host["order"]:
+        raise AssertionError("the card run admitted another tx list than the host run")
+    n_admitted = len(card.pop("order"))
+    host.pop("order")
+    out["wide"] = {"txs": len(wide), "hub_max_batch": VD_PACK_MAX_BATCH,
+                   "hub_window_ms": TX_CARD_WINDOW_MS, "card": card, "host": host,
+                   "admitted_equal_bytes_in_order": n_admitted,
+                   "routes": _split_by_route(log.batches), "batches": log.batches,
+                   "chunks_held": log.chunks, "launches": launches,
+                   "hub_occupancy": hs["mean_occupancy"]}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# -- phase 22 -----------------------------------------------------------------
+
+
+def _sidecar_by_path(vd: dict, tx: dict, ev: dict) -> dict:
+    """Phases 20-22's launch counts by path, for the `kernels` rows."""
+    out = {
+        VD_PACKED: vd["packed_ranges"]["honest"]["launches"],
+        VD_TAMPERED: vd["packed_ranges"]["tampered"]["launches"],
+        VD_AGG: vd["aggregate"]["honest"]["launches"],
+        VD_AGG + " tampered": vd["aggregate"]["tampered"]["launches"],
+        TX_CARD: tx["wide"]["launches"],
+    }
+    for name, check in ev["checks"].items():
+        out[f"evidence[{name}]"] = check["launches"]
+    return out
+
+
+def drive_evidence(dev) -> dict:
+    """Phase 22: the evidence pool on the card inside a running hub, and
+    its reactor between two pools (see the module docstring)."""
+    import asyncio
+    from dataclasses import replace
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+    from tendermint_tpu_torch.evidence import EVIDENCE_CHANNEL
+    from tendermint_tpu_torch.evidence.pool import EvidencePool
+    from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
+    from tendermint_tpu_torch.p2p.peermanager import PeerStatus, PeerUpdate
+    from tendermint_tpu_torch.p2p.router import Channel
+    from tendermint_tpu_torch.p2p.types import Envelope
+    from tendermint_tpu_torch.store.db import MemDB
+    from tendermint_tpu_torch.types.evidence import decode_evidence
+
+    t0 = time.perf_counter()
+    keys = tt.det_priv_keys(N_VALS)
+    by_addr = {k.pub_key().address(): k for k in keys}
+    bstore, sstore, _conns, _state = asyncio.run(tt.build_kvstore_chain(
+        tt.make_genesis(keys, EV_CHAIN_ID), keys, EV_BLOCKS, device=dev))
+    out: dict = {"validators": N_VALS, "blocks": EV_BLOCKS, "chain_build_s": time.perf_counter() - t0}
+    dup = tt.make_duplicate_vote_evidence(EV_CHAIN_ID, bstore, sstore, keys[1], EV_DUP_HEIGHT)
+    lca = asyncio.run(tt.make_lunatic_evidence(
+        EV_CHAIN_ID, bstore, sstore, by_addr, common_height=EV_COMMON_HEIGHT,
+        attack_height=EV_ATTACK_HEIGHT, n_traitors=EV_TRAITORS, seed=SEED))
+
+    def flip(sig):
+        return bytes([sig[0] ^ 1]) + sig[1:]
+
+    sh = lca.conflicting_block.signed_header
+    sigs = list(sh.commit.signatures)
+    sigs[0] = replace(sigs[0], signature=flip(sigs[0].signature))
+    bad_lca = replace(lca, conflicting_block=replace(
+        lca.conflicting_block,
+        signed_header=replace(sh, commit=replace(sh.commit, signatures=tuple(sigs)))))
+    bad_dup = replace(dup, vote_b=replace(dup.vote_b, signature=flip(dup.vote_b.signature)))
+    cases = (("duplicate_vote", dup, True), ("duplicate_vote, tampered", bad_dup, False),
+             ("light_client_attack", lca, True), ("light_client_attack, tampered", bad_lca, False))
+
+    vh.acquire_hub(device=dev)
+    checks = {}
+    try:
+        for name, ev, valid in cases:
+            pool = EvidencePool(MemDB(), sstore, bstore, device=dev)
+            log = BatchLog()
+            _launch_counts(reset=True)
+            t1 = time.perf_counter()
+            with log.recording():
+                try:
+                    pool.add_evidence(ev)
+                    verdict, err = True, None
+                except Exception as e:  # noqa: BLE001 — the verdict is checked below
+                    verdict, err = False, f"{type(e).__name__}: {e}"
+            checks[name] = {"verdict": verdict, "error": err, "wall_s": time.perf_counter() - t1,
+                            "routes": _split_by_route(log.batches), "launches": _launch_counts()}
+            if verdict != valid:
+                raise AssertionError(f"evidence {name}: {checks[name]}")
+        hs = vh.running_hub().stats()
+
+        # the reactor: pool A offers the valid evidence to pool B
+        async def gossip():
+            pools = [EvidencePool(MemDB(), sstore, bstore, device=dev) for _ in range(2)]
+            pools[0].add_evidence(dup)
+            pools[0].add_evidence(lca)
+            chans = [Channel(EVIDENCE_CHANNEL, "evidence", 6, lambda e: e.encode(), decode_evidence)
+                     for _ in pools]
+            ups = [asyncio.Queue(), asyncio.Queue()]
+            reactors = [EvidenceReactor(p, c, u) for p, c, u in zip(pools, chans, ups)]
+            names = ("node-a", "node-b")
+
+            async def pump(src):
+                while True:
+                    env = await chans[src].out_q.get()
+                    await chans[1 - src].in_q.put(Envelope(
+                        EVIDENCE_CHANNEL, env.message.encode(), from_=names[src]))
+
+            for r in reactors:
+                await r.start()
+            pumps = [asyncio.ensure_future(pump(i)) for i in (0, 1)]
+            try:
+                await ups[0].put(PeerUpdate(names[1], PeerStatus.UP))
+                await ups[1].put(PeerUpdate(names[0], PeerStatus.UP))
+                for _ in range(3000):
+                    if len(pools[1].pending_evidence(1 << 20)[0]) == 2:
+                        break
+                    await asyncio.sleep(0.01)
+                return sorted(e.hash() for e in pools[1].pending_evidence(1 << 20)[0])
+            finally:
+                for t in pumps:
+                    t.cancel()
+                await asyncio.gather(*pumps, return_exceptions=True)
+                for r in reactors:
+                    await r.stop()
+
+        t1 = time.perf_counter()
+        received = asyncio.run(gossip())
+        gossip_s = time.perf_counter() - t1
+    finally:
+        vh.release_hub()
+    if received != sorted([dup.hash(), lca.hash()]):
+        raise AssertionError("the reactor did not carry both valid evidences")
+    if hs["verify_errors"]:
+        raise AssertionError(f"evidence hub: {hs}")
+    out.update(checks=checks, reactor={"received": 2, "wall_s": gossip_s},
+               attributed=len(lca.byzantine_validators), hub_dispatches=hs["dispatches"],
+               phase_s=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3905,6 +4852,19 @@ def main() -> int:
     sharded = drive_sharded(dev, entries, audit)
     sharded["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"sharded": sharded}))
+    t0 = time.perf_counter()
+    # the aggregate's K7a/K7b shape, (2, 32), is phase 15's: held there
+    vd = drive_verifyd(dev, audit, PairingAudit())
+    vd["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"verifyd": vd}))
+    t0 = time.perf_counter()
+    tx = drive_tx_flood(dev, audit)
+    tx["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"tx_ingress": tx}))
+    t0 = time.perf_counter()
+    ev = drive_evidence(dev)
+    ev["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"evidence": ev}))
     # K7a and K7b at every shape phases 17-18 gave them, path and
     # worst-case inputs
     t0 = time.perf_counter()
@@ -3919,7 +4879,7 @@ def main() -> int:
         "verify_commit_range[hub, max_batch 512]": hub["passes"][2]["launches"],
         f"blocksync[replay of the {N_BS_BLOCKS}-block chain]": bs["launches"],
         "blocksync[tampered pass]": bs["tampered"]["launches"],
-        "light[verify_adjacent_chain, 1,000 headers]": light["launches"],
+        f"light[verify_adjacent_chain, {N_LC_HEADERS:,} headers]": light["launches"],
         "light[client, sequential]": light["client_sequential"]["launches"],
         "light[client, skipping]": light["client_skipping"]["launches"],
         "light[tampered pass]": light["tampered"]["launches"],
@@ -3946,6 +4906,7 @@ def main() -> int:
         SSF_DEEP: ssf["backfill_ab"]["per_sig_deep"]["launches"],
         SSF_BLS: ssf["backfill_ab"]["bls_aggregate"]["launches"],
         **_sharded_by_path(sharded),
+        **_sidecar_by_path(vd, tx, ev),
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
@@ -3972,7 +4933,8 @@ def main() -> int:
     for name in EDWARDS_KERNELS:
         paths = {p for rec in held.get(name, []) for p in rec["calls"]}
         if not {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED, BS_MAIN, LC_MAIN,
-                LC_TAMPERED, SSF_DEEP, *(_sh_path("kernel_eq", n) for n in SH_SHARDS)} <= paths:
+                LC_TAMPERED, SSF_DEEP, *(_sh_path("kernel_eq", n) for n in SH_SHARDS),
+                VD_PACKED, VD_TAMPERED, TX_CARD} <= paths:
             raise AssertionError(f"{name}: shapes recorded on {sorted(paths)} only")
     print(json.dumps({"shapes": held}))
     for row in rows:

@@ -1,11 +1,73 @@
 """Node configuration — the port's copy of the sections of
-tendermint_tpu/config.py that it reads so far: `VerifyHubConfig`,
-`LightDConfig` and `BootDConfig`.
+tendermint_tpu/config.py that it reads so far: `MempoolIngressConfig`,
+`MempoolConfig`, `EvidenceConfig`, `VerifyHubConfig`, `LightDConfig`
+and `BootDConfig`.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+
+
+@dataclass
+class MempoolIngressConfig:
+    """TxIngress — the staged tx admission pipeline in front of the
+    priority mempool (mempool/ingress.py): bounded intake with explicit
+    backpressure, envelope signature pre-verification micro-batched
+    through the VerifyHub backfill lane, per-sender nonce lanes, and
+    deterministic in-order admission. Env mirrors win over these values,
+    as the reference reads them: TMTPU_INGRESS_DEPTH,
+    TMTPU_INGRESS_WORKERS, TMTPU_INGRESS_LANE_DEPTH,
+    TMTPU_INGRESS_PARK_MS, TMTPU_INGRESS_CHECKTX_BATCH (TxIngress reads
+    them when built)."""
+
+    enabled: bool = True
+    # total occupancy bound from accepted submit to insert/park: a full
+    # pipeline rejects-with-busy (shed) instead of buffering unboundedly
+    depth: int = 2048
+    # concurrent stage-A (parse + signature pre-verify) workers; the
+    # reorder buffer restores strict arrival order behind them
+    verify_workers: int = 8
+    # parked out-of-order txs per sender nonce lane
+    nonce_lane_depth: int = 32
+    # a nonce gap older than this (injected-clock wall domain) evicts
+    # every tx parked behind it
+    nonce_park_timeout_ms: float = 3000.0
+    # stage-B release slice width: consecutive in-release-order entries
+    # whose ABCI CheckTx calls are prefetched concurrently before serial
+    # in-order admission consumes them; 1 is the serial path
+    checktx_batch: int = 1
+
+
+@dataclass
+class MempoolConfig:
+    """Reference config/config.go:800-860."""
+
+    size: int = 5000
+    max_txs_bytes: int = 1024 * 1024 * 1024
+    cache_size: int = 10000
+    keep_invalid_txs_in_cache: bool = False
+    max_tx_bytes: int = 1024 * 1024
+    recheck: bool = True
+    broadcast: bool = True
+    ttl_num_blocks: int = 0
+    ttl_duration_ns: int = 0
+    # post-commit re-CheckTx batch width: the resident set is re-checked
+    # in concurrent slices of this many ABCI calls (mempool/pool.py
+    # _recheck)
+    recheck_batch: int = 64
+    # max peers each resident tx is gossiped to (0 = unlimited); the
+    # reactor also never echoes a tx back to the peer(s) it arrived from
+    gossip_fanout: int = 8
+    ingress: MempoolIngressConfig = field(default_factory=MempoolIngressConfig)
+
+
+@dataclass
+class EvidenceConfig:
+    """Evidence-related consensus params live in types/params.py; this is
+    pool sizing."""
+
+    max_pending: int = 1000
 
 
 @dataclass
@@ -13,13 +75,20 @@ class VerifyHubConfig:
     """VerifyHub — the node-wide micro-batching signature-verification
     scheduler (crypto/verify_hub.py): the defaults of its constructor.
     The reference's TMTPU_VERIFYHUB_* env overrides wait for the node
-    config that reads them; its `enabled`, `mesh_scale` and `verifyd_sock`
-    wait for the node and the verifyd sidecar, which are not ported (the
-    hub always scales its capacity by the mesh size)."""
+    config that reads them; its `enabled` and `mesh_scale` wait for the
+    node, which is not ported (the hub always scales its capacity by the
+    mesh size)."""
 
     max_batch: int = 512  # per-device dispatch target (sigs queued)
     window_ms: float = 2.0  # micro-batch window ceiling (adaptive below it)
     cache_size: int = 8192  # verified-(pubkey,msg,sig) LRU entries
+    # verification sidecar (crypto/verifyd.py): path of a running verifyd
+    # daemon's Unix socket. When set, the hub ships its packed cold
+    # micro-batches there instead of dispatching locally — N node
+    # processes on one host share the daemon's card. A daemon crash
+    # degrades to the hub's own device route through a circuit breaker.
+    # Env mirror: TMTPU_VERIFYD_SOCK (wins over this value).
+    verifyd_sock: str = ""
 
 
 @dataclass

@@ -18,6 +18,7 @@ the port), so a chain built by one package replays in the other:
   block, commit, valset, state   Block, Commit, ValidatorSet, State
   genesis                        GenesisDoc (through its JSON)
   block_store                    every block and commit of a BlockStore
+  state_store                    every key of a StateStore (sets by height)
   light_block, signed_header     LightBlock, SignedHeader
   hop_proof                      a LightD HopProof (aggregate or per-sig)
   evidence                       DuplicateVote / LightClientAttack evidence
@@ -127,6 +128,20 @@ def block_store(ref_store, db=None):
     for h in range(ref_store.base(), ref_store.height() + 1):
         b = block(ref_store.load_block(h))
         out.save_block(b, b.make_part_set(), commit(ref_store.load_seen_commit(h)))
+    return out
+
+
+def state_store(ref_store, db=None):
+    """The reference's StateStore → the port's: every key of its DB (the
+    state blob, validator sets, params and ABCI responses by height, whose
+    bytes both packages share) copied into a new port StateStore (on
+    `db`, a MemDB by default)."""
+    from .state.store import StateStore
+    from .store.db import MemDB
+
+    out = StateStore(db if db is not None else MemDB())
+    for key, value in ref_store.db.iterate():
+        out.db.set(key, value)
     return out
 
 

@@ -160,6 +160,19 @@ def _measure_cutoff(device=DEFAULT_DEVICE) -> dict | None:
     }
 
 
+def warm_backend(device=DEFAULT_DEVICE) -> None:
+    """Build and load the kernels for `device` now: the attach
+    (crypto/backend_telemetry.py) that the verifyd daemon pays at start,
+    before any client needs the card, in place of the reference's
+    background probe (`tpu_verifier_available`). A CPU device runs the
+    plain versions and loads nothing."""
+    dev = resolve(device)
+    if dev.type == "cuda":
+        from .cuda import _build
+
+        _build.build_all()
+
+
 def mesh_parallelism(device=DEFAULT_DEVICE) -> int:
     """The number of devices a dispatch from `device` shards over now
     (crypto/cuda/verify._shard_device_count): 1 unless the mesh holds more
@@ -227,12 +240,14 @@ class AdaptiveBatchVerifier(BatchVerifier):
 
     def _verify_edwards(self, items) -> tuple[list[bool], str]:
         if len(items) >= MIN_TPU_BATCH:
+            from . import backend_telemetry
             from .cuda.verify import last_dispatch_info
 
             out = self._on_device(
                 lambda its: self._run(self._make_device_verifier(), its)[1], items
             )
             self.last_dispatch = last_dispatch_info()
+            backend_telemetry.set_active(self._device.type)
             return out
         return self._run(CPUBatchVerifier(), items)[1], "cpu"
 

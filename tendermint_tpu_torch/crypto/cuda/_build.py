@@ -7,6 +7,11 @@ the root of the checkout, where `<key>` hashes the sources and the flags,
 so a second process reuses them and an edited source rebuilds. Nothing is
 built at import: the first launch of any kernel builds them all.
 
+The process's first call is its attach (crypto/backend_telemetry.py): CUDA
+initialisation plus the loads, built first where a library is missing;
+each library loaded counts as a compile-cache hit (found on disk) or
+miss (built by nvcc here).
+
 Every C launcher takes its pointers, sizes, the CUDA device index and the
 stream, makes the device current only if another one is
 (csrc/launch.cuh), launches on that stream, and returns
@@ -22,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -70,37 +76,58 @@ def _build_key() -> str:
 
 def build_all() -> dict[str, Path]:
     """Compile every csrc/*.cu that is not built yet, in parallel; load
-    them all. Returns {source stem: library path}. Raises on any failure."""
+    them all. Returns {source stem: library path}. Raises on any failure.
+    The first call in a process is its attach (CUDA initialisation and
+    the loads), recorded in crypto/backend_telemetry.py."""
+    from .. import backend_telemetry as bt
+
     with _lock:
-        out_dir = BUILD_ROOT / _build_key()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        sources = sorted(CSRC.glob("*.cu"))
-        procs = []
-        for src in sources:
-            lib = out_dir / f"lib{src.stem}.so"
-            if lib.exists():
-                continue
-            tmp = out_dir / f".lib{src.stem}.{os.getpid()}.so"
-            procs.append(
-                (src, lib, tmp, subprocess.Popen(
-                    nvcc_command(src, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-                ))
-            )
-        failed = []
-        for src, lib, tmp, proc in procs:
-            log, _ = proc.communicate()
-            BUILD_LOG[src.stem] = log
-            if proc.returncode != 0:
-                failed.append(f"{src.name} (nvcc exit {proc.returncode}):\n{log}")
-            else:
-                os.replace(tmp, lib)  # atomic: a concurrent builder sees whole files
-        if failed:
-            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-        paths = {src.stem: out_dir / f"lib{src.stem}.so" for src in sources}
-        for stem, path in paths.items():
-            if stem not in _libs:
-                _libs[stem] = ctypes.CDLL(str(path))
+        if _libs:
+            return _build_and_load(bt)
+        t0 = time.perf_counter()
+        try:
+            torch.cuda.init()
+            paths = _build_and_load(bt)
+        except Exception as e:
+            bt.record_attach_attempt(time.perf_counter() - t0, False, kind="cuda", error=repr(e))
+            raise
+        bt.record_attach_attempt(time.perf_counter() - t0, True, kind="cuda")
         return paths
+
+
+def _build_and_load(bt) -> dict[str, Path]:
+    """build_all's work; the caller holds `_lock`."""
+    out_dir = BUILD_ROOT / _build_key()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    procs = []
+    for src in sources:
+        lib = out_dir / f"lib{src.stem}.so"
+        if lib.exists():
+            continue
+        tmp = out_dir / f".lib{src.stem}.{os.getpid()}.so"
+        procs.append(
+            (src, lib, tmp, subprocess.Popen(
+                nvcc_command(src, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ))
+        )
+    failed = []
+    for src, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        BUILD_LOG[src.stem] = log
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent build sees whole files
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    built = {src.stem for src, _lib, _tmp, _proc in procs}
+    paths = {src.stem: out_dir / f"lib{src.stem}.so" for src in sources}
+    for stem, path in paths.items():
+        if stem not in _libs:
+            _libs[stem] = ctypes.CDLL(str(path))
+            bt.record_compile_cache(stem not in built)
+    return paths
 
 
 class Kernel:

@@ -51,16 +51,28 @@ Differences from the reference, by design:
   * `max_batch`, `window_ms` and `cache_size` come from the
     constructor, with `VerifyHubConfig`'s defaults; the reference's
     TMTPU_VERIFYHUB_* env overrides wait for the node config that
-    reads them;
+    reads them (TMTPU_VERIFYD_SOCK, the remote route's, is read);
   * `verify_aggregate` runs the pairing check on the caller's device
     (the hub lends only its verdict cache), as the reference runs it on
     the caller's thread;
   * the batch capacity always scales by the mesh size: the reference's
     `mesh_scale` knob (TMTPU_MESH_SCALE, `[verify_hub]`) waits for the
     node config that reads it;
-  * not ported yet: the verifyd remote route (with crypto/verifyd.py,
-    for per-signature batches and aggregates alike) and per-tenant
-    packing stats (verifyd).
+  * the remote route's fall-back is the hub's own device route: a batch
+    the sidecar does not answer verifies on the hub's device (the card
+    at or above the cutoff), never silently on the host; every
+    fall-back is counted (crypto/verifyd.CLIENT_STATS).
+
+Remote route (crypto/verifyd.py): when ``verifyd_sock`` (or
+TMTPU_VERIFYD_SOCK, which wins) names a verifyd sidecar's Unix socket,
+`_verify_batch` ships its packed cold batches to the daemon instead of
+dispatching locally — the window, verdict cache, coalescing and lanes
+all stay client-side, and the daemon re-batches across every client
+process on the host (one card, N node processes). `verify_aggregate`
+ships its check there too, on a connection of its own. A daemon's hub
+has ``allow_remote=False``; it tags each client's signatures with a
+tenant id, and `cross_tenant_dispatches` counts dispatches that packed
+more than one client.
 
 Mesh awareness: `max_batch` is a per-device target. Each dispatch
 iteration reads how many devices a dispatch from the hub's device shards
@@ -76,6 +88,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -109,9 +122,12 @@ class _Pending:
     (and their trace contexts — a coalesced duplicate still gets
     hub.queue/hub.execute spans on its own trace)."""
 
-    __slots__ = ("key", "pub_key", "msg", "sig", "futures", "enqueued_at", "lane", "traces")
+    __slots__ = (
+        "key", "pub_key", "msg", "sig", "futures", "enqueued_at", "lane", "traces",
+        "tenants",
+    )
 
-    def __init__(self, key, pub_key, msg, sig, fut, now, lane, trace_ctx=None):
+    def __init__(self, key, pub_key, msg, sig, fut, now, lane, trace_ctx=None, tenant=None):
         self.key = key
         self.pub_key = pub_key
         self.msg = msg
@@ -122,6 +138,18 @@ class _Pending:
         # (ctx, joined_at): a coalesced duplicate's queue wait starts
         # when IT joined, not when the first submitter enqueued
         self.traces: list | None = [(trace_ctx, now)] if trace_ctx is not None else None
+        # multi-tenant tag (the verifyd daemon stamps each client's
+        # connection id): a dispatch whose batch carries >1 distinct
+        # tenant is a cross-client pack
+        self.tenants: set | None = {tenant} if tenant is not None else None
+
+    def add_tenant(self, tenant) -> None:
+        if tenant is None:
+            return
+        if self.tenants is None:
+            self.tenants = {tenant}
+        else:
+            self.tenants.add(tenant)
 
     def add_trace(self, trace_ctx) -> None:
         if trace_ctx is None:
@@ -142,7 +170,9 @@ def _cache_key(pub_key: PubKey, msg: bytes, sig: bytes) -> tuple:
 class VerifyHub:
     """Per-process async verification service (see module docstring).
     `device` is where its batches verify ("cuda" by default; raises
-    without a card unless "cpu" is asked for)."""
+    without a card unless "cpu" is asked for). `verifyd_sock` routes its
+    batches through a verifyd sidecar; `allow_remote=False` (the
+    daemon's own hub) ignores both it and TMTPU_VERIFYD_SOCK."""
 
     #: in-flight dispatch depth: one batch on the device, one packed and
     #: waiting — the double buffer. More adds queueing, not overlap.
@@ -156,6 +186,8 @@ class VerifyHub:
         window_ms: float | None = None,
         cache_size: int | None = None,
         adaptive: bool = True,
+        verifyd_sock: str | None = None,
+        allow_remote: bool = True,
         name: str = "verify-hub",
     ):
         # a knob left as None takes VerifyHubConfig's default
@@ -168,6 +200,16 @@ class VerifyHub:
             window_ms = defaults.window_ms
         if cache_size is None:
             cache_size = defaults.cache_size
+        # the sidecar route: TMTPU_VERIFYD_SOCK wins over the argument, as
+        # in the reference; a daemon's own hub must never route back into
+        # itself (allow_remote=False, not env-overridable)
+        if allow_remote:
+            verifyd_sock = os.environ.get("TMTPU_VERIFYD_SOCK") or (
+                defaults.verifyd_sock if verifyd_sock is None else verifyd_sock
+            )
+        else:
+            verifyd_sock = ""
+        self.verifyd_sock = verifyd_sock or ""
         self.device = resolve(device)
         self.name = name
         self.max_batch = max(1, max_batch)
@@ -221,6 +263,9 @@ class VerifyHub:
             # Edwards batch equation, bls12381 runs the pairing kernels
             "scheme_edwards_sigs": 0.0,
             "scheme_bls_sigs": 0.0,
+            # multi-tenant packing (the verifyd daemon's hub): dispatches
+            # whose batch mixed signatures from >1 client connection
+            "cross_tenant_dispatches": 0.0,
         }
 
     # -- lifecycle -------------------------------------------------------
@@ -260,7 +305,9 @@ class VerifyHub:
 
     # -- submission ------------------------------------------------------
 
-    def _submit_locked(self, pub_key, msg, sig, urgent, lane, trace_ctx) -> tuple[Future, bool]:
+    def _submit_locked(
+        self, pub_key, msg, sig, urgent, lane, trace_ctx, tenant=None
+    ) -> tuple[Future, bool]:
         """Enqueue one triple; the caller holds `_cv`. Returns the future
         and whether the caller must verify inline (hub stopped, or a
         re-entrant call from a hub worker — never wait on ourselves)."""
@@ -288,6 +335,7 @@ class VerifyHub:
         if pending is not None:
             pending.futures.append(fut)
             pending.add_trace(trace_ctx)
+            pending.add_tenant(tenant)
             self._stats["coalesced"] += 1
             if (
                 lane == LANE_LIVE
@@ -308,7 +356,8 @@ class VerifyHub:
             return fut, True
         q = self._queues[lane]
         q[key] = _Pending(
-            key, pub_key, msg, sig, fut, time.monotonic(), lane, trace_ctx=trace_ctx
+            key, pub_key, msg, sig, fut, time.monotonic(), lane,
+            trace_ctx=trace_ctx, tenant=tenant,
         )
         self._stats["submitted"] += 1
         self._stats[f"lane_{lane}_submitted"] += 1
@@ -335,6 +384,7 @@ class VerifyHub:
         urgent: bool = False,
         lane: str = LANE_LIVE,
         trace_ctx=None,
+        tenant=None,
     ) -> Future:
         """Enqueue one verification; returns a concurrent Future[bool].
 
@@ -343,9 +393,12 @@ class VerifyHub:
         scheduler lane: live consensus is packed ahead of backfill in
         every dispatch. `trace_ctx` (libs/trace.TraceCtx) joins the
         request to a trace: the hub records hub.queue and hub.execute
-        spans on it."""
+        spans on it. `tenant` tags the submitter (the verifyd daemon's
+        client connection) for `cross_tenant_dispatches`."""
         with self._cv:
-            fut, inline = self._submit_locked(pub_key, msg, sig, urgent, lane, trace_ctx)
+            fut, inline = self._submit_locked(
+                pub_key, msg, sig, urgent, lane, trace_ctx, tenant
+            )
         if inline:
             self._verify_inline(fut, pub_key, msg, sig)
         return fut
@@ -551,6 +604,14 @@ class VerifyHub:
                             )
                 self._stats["dispatches"] += 1
                 self._stats["dispatched_sigs"] += len(batch)
+                tenants: set = set()
+                for p in batch:
+                    if p.tenants:
+                        tenants.update(p.tenants)
+                if len(tenants) > 1:
+                    # >1 verifyd client packed into one dispatch: the
+                    # cross-process amortization the sidecar exists for
+                    self._stats["cross_tenant_dispatches"] += 1
                 alpha = 0.2
                 self._ewma_occupancy = (
                     (1 - alpha) * self._ewma_occupancy + alpha * len(batch)
@@ -624,14 +685,47 @@ class VerifyHub:
                 if not f.done():
                     f.set_result(ok)
 
+    def _remote(self, purpose: str = "batch"):
+        """The verifyd client for this hub's socket (process-wide, one
+        connection and breaker per socket and purpose: aggregates ride a
+        connection of their own), or None without a remote route."""
+        if not self.verifyd_sock:
+            return None
+        from . import verifyd
+
+        return verifyd.client_for(self.verifyd_sock, purpose)
+
     def _verify_batch(self, batch: list[_Pending]) -> list[bool]:
         """One batched verify per scheme per dispatch (reference
-        verify_hub.py:735): the batchable key types are partitioned by
-        scheme, ed25519/sr25519 ("edwards") and bls12381 ("bls"), and each
+        verify_hub.py:735).
+
+        Remote route first: with a verifyd sidecar configured, the whole
+        packed batch ships over the socket and the daemon's hub
+        re-batches it across client processes (route "verifyd" on the
+        dispatch span). A batch the sidecar does not answer (breaker
+        open, busy, error reply, socket error: the client returns None
+        and counts a fall-back) goes on to the local path below.
+
+        Local path: the batchable key types are partitioned by scheme,
+        ed25519/sr25519 ("edwards") and bls12381 ("bls"), and each
         partition goes to its own AdaptiveBatchVerifier on the hub's
         device (device/host routing by size lives there); anything
         unbatchable (secp256k1), and a partition of one signature,
         verifies on the host."""
+        remote = self._remote()
+        if remote is not None:
+            verdicts = remote.remote_verify_batch(
+                [(p.pub_key, p.msg, p.sig, p.lane) for p in batch]
+            )
+            if verdicts is not None:
+                self._route_local.route = "verifyd"
+                self._route_local.dispatch = None
+                with self._cv:
+                    for p in batch:
+                        if supports_batch_verifier(p.pub_key):
+                            scheme = "bls" if p.pub_key.TYPE == "bls12381" else "edwards"
+                            self._stats[f"scheme_{scheme}_sigs"] += 1
+                return verdicts
         results = [False] * len(batch)
         groups: dict[str, list[int]] = {}
         for i, p in enumerate(batch):
@@ -684,11 +778,12 @@ def acquire_hub(**kwargs) -> VerifyHub:
             _default_hub = VerifyHub(**kwargs)
             _default_hub.start()
             logger.info(
-                "verify hub started on %s (max_batch=%d window=%.1fms cache=%d)",
+                "verify hub started on %s (max_batch=%d window=%.1fms cache=%d%s)",
                 _default_hub.device,
                 _default_hub.max_batch,
                 _default_hub.window_s * 1e3,
                 _default_hub.cache_size,
+                f" verifyd={_default_hub.verifyd_sock}" if _default_hub.verifyd_sock else "",
             )
         _refs += 1
         return _default_hub
@@ -764,7 +859,10 @@ def verify_aggregate(
     against per-signer messages through a single pairing product, on the
     caller's thread and `device` (crypto/batch.bls_aggregate_verify). The
     running hub's verdict LRU answers re-verifications of the same commit
-    without pairing again."""
+    without pairing again. With a verifyd sidecar configured on the
+    running hub, a cache miss ships the check over the socket first (the
+    daemon pairs it on its device); a check the sidecar does not answer
+    runs here, on `device`."""
     from .batch import bls_aggregate_verify
 
     dev = resolve(device)
@@ -774,6 +872,12 @@ def verify_aggregate(
         hit = hub.cached_verdict(key)
         if hit is not None:
             return hit
+        remote = hub._remote("aggregate")
+        if remote is not None:
+            v = remote.remote_verify_aggregate(pub_keys, msgs, agg_sig)
+            if v is not None:
+                hub.store_verdict(key, v)
+                return v
     ok = bls_aggregate_verify(pub_keys, msgs, agg_sig, dev)
     if hub is not None:
         hub.store_verdict(key, ok)

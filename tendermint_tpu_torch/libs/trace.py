@@ -49,14 +49,17 @@ _ids = itertools.count(1)
 
 class TraceCtx:
     """Propagated handle for one end-to-end trace: the id, the clock the
-    trace is timed on, and the trace's own t0."""
+    trace is timed on, the trace's own t0, and a small `marks` dict for
+    boundary timestamps shared across pipeline stages (so the tx
+    ingress's stage spans tile its root span exactly)."""
 
-    __slots__ = ("trace_id", "t0", "clock")
+    __slots__ = ("trace_id", "t0", "clock", "marks")
 
     def __init__(self, trace_id: int, t0: float, clock: Clock):
         self.trace_id = trace_id
         self.t0 = t0
         self.clock = clock
+        self.marks: dict[str, float] = {}
 
 
 class Span:

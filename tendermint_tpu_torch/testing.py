@@ -1,8 +1,10 @@
-"""Test/bench fixtures: deterministic validator sets, signed commits,
-light chains, kvstore chains, pairing buckets and the state-sync restore
-and join-wave scenarios (the subset of tendermint_tpu/testing.py the
-commit, block-sync, light-client and state-sync paths need, and the chain
-builds of bench.py's block-sync and state-sync benches). Keys derive from the same seeds as the reference's, so both
+"""Test/bench fixtures: deterministic validator sets, signed commits and
+votes, light chains, kvstore chains, pairing buckets, the state-sync
+restore and join-wave scenarios, and the seeded tx flood (the subset of
+tendermint_tpu/testing.py the commit, block-sync, light-client,
+state-sync and evidence paths need, the chain builds of bench.py's
+block-sync and state-sync benches, and the envelope txs of its tx-flood
+bench). Keys derive from the same seeds as the reference's, so both
 packages build the same validators and addresses, and the same
 signatures wherever the scheme is deterministic (ed25519, sr25519;
 secp256k1 only on the pure-Python path)."""
@@ -25,6 +27,143 @@ def det_priv_keys(n: int, seed: bytes = b"tmtpu-test") -> list[ed25519.Ed25519Pr
         ed25519.Ed25519PrivKey(hashlib.sha256(seed + i.to_bytes(4, "big")).digest())
         for i in range(n)
     ]
+
+
+def make_vote(
+    chain_id: str,
+    key,
+    index: int,
+    height: int,
+    round_: int,
+    type_: SignedMsgType,
+    block_id: BlockID,
+    timestamp_ns: int = 1_700_000_000_000_000_000,
+):
+    """One signed vote by `key` at validator `index` (the reference's
+    `testing.make_vote`)."""
+    from .types.vote import Vote
+
+    sb = vote_sign_bytes(chain_id, type_, height, round_, block_id, timestamp_ns)
+    return Vote(
+        type=type_,
+        height=height,
+        round=round_,
+        block_id=block_id,
+        timestamp_ns=timestamp_ns,
+        validator_address=key.pub_key().address(),
+        validator_index=index,
+        signature=key.sign(sb),
+    )
+
+
+def make_duplicate_vote_evidence(
+    chain_id: str, block_store, state_store, key, height: int, round_: int = 0
+):
+    """DuplicateVoteEvidence of `key` signing two different blocks at
+    (`height`, `round_`, precommit), stamped with the committed block's
+    time and the height's validator set from the stores (the reference's
+    tests/test_evidence.py equivocation)."""
+    from .types.evidence import DuplicateVoteEvidence
+
+    vals = state_store.load_validators(height)
+    meta = block_store.load_block_meta(height)
+    idx, _val = vals.get_by_address(key.pub_key().address())
+    va, vb = (
+        make_vote(chain_id, key, idx, height, round_, SignedMsgType.PRECOMMIT,
+                  make_block_id(tag), timestamp_ns=meta.header.time_ns)
+        for tag in (b"fork-a", b"fork-b")
+    )
+    return DuplicateVoteEvidence.from_votes(va, vb, meta.header.time_ns, vals)
+
+
+async def make_lunatic_evidence(
+    chain_id: str,
+    block_store,
+    state_store,
+    keys_by_addr: dict,
+    *,
+    common_height: int,
+    attack_height: int,
+    n_traitors: int,
+    seed: int = 0,
+):
+    """LightClientAttackEvidence against the stored chain: a
+    `light.byzantine.LunaticProvider` over the committed light blocks
+    serves its forgery at `attack_height` (signed by `n_traitors`
+    colluders), and the evidence is formed as the light client forms it
+    (light/client.py): common height `common_height`, the common set's
+    power and block time, and the attribution against the committed
+    header."""
+    import dataclasses
+
+    from .light.byzantine import LunaticConfig, LunaticProvider
+    from .light.types import LightBlock, SignedHeader
+    from .types.evidence import LightClientAttackEvidence
+
+    def stored(height):
+        # the committed header, its canonical commit (the seen commit at
+        # the store's tip) and the height's validator set
+        meta = block_store.load_block_meta(height)
+        commit = block_store.load_block_commit(height) or block_store.load_seen_commit(height)
+        return LightBlock(SignedHeader(meta.header, commit), state_store.load_validators(height))
+
+    common, real = stored(common_height), stored(attack_height)
+    lunatic = LunaticProvider(
+        make_list_provider([common, real], chain_id),
+        LunaticConfig((attack_height,), seed, n_traitors),
+        real.validators,
+        keys_by_addr,
+    )
+    forged = await lunatic.light_block(attack_height)
+    ev = LightClientAttackEvidence(
+        conflicting_block=forged,
+        common_height=common_height,
+        byzantine_validators=(),
+        total_voting_power=common.validators.total_voting_power(),
+        timestamp_ns=common.header.time_ns,
+    )
+    return dataclasses.replace(
+        ev,
+        byzantine_validators=tuple(
+            ev.get_byzantine_validators(common.validators, real.signed_header)
+        ),
+    )
+
+
+def make_envelope_flood(
+    n_clients: int,
+    txs_per_client: int,
+    *,
+    seed: bytes = b"tx-flood",
+    tampered=(),
+    reversed_clients=(),
+) -> list[bytes]:
+    """The seeded tx flood: `n_clients` × `txs_per_client` signed envelope
+    txs (mempool/ingress.py), client i signing with `det_priv_keys(
+    n_clients, seed)[i]` nonces 0.. with payload b"flood-<i>-<nonce>"
+    (bench.py's tx-flood payloads), in client-major order. `tampered`
+    holds (client, nonce) pairs whose signature gets its first bit
+    flipped; `reversed_clients` lists clients whose txs come in reverse
+    nonce order (out-of-order arrivals that park in their nonce lane).
+    Deterministic: both packages' ingresses get the same bytes."""
+    from .mempool.ingress import decode_envelope, encode_envelope, make_signed_tx
+
+    tampered = set(tampered)
+    reversed_clients = set(reversed_clients)
+    txs: list[bytes] = []
+    for ci, key in enumerate(det_priv_keys(n_clients, seed)):
+        own = []
+        for nonce in range(txs_per_client):
+            tx = make_signed_tx(key, nonce, b"flood-%d-%d" % (ci, nonce))
+            if (ci, nonce) in tampered:
+                env = decode_envelope(tx)
+                sig = bytes([env.signature[0] ^ 1]) + env.signature[1:]
+                tx = encode_envelope(
+                    type(env)(env.key_type, env.pub_key_bytes, env.nonce, env.payload, sig)
+                )
+            own.append(tx)
+        txs.extend(reversed(own) if ci in reversed_clients else own)
+    return txs
 
 
 def make_validator_set(

@@ -7,7 +7,10 @@ unset. Two steer the sharded verifier, read with the knob set and then
 unset in one interpreter: TMTPU_MESH_MAX_DEVICES caps the mesh at
 enumeration (the port's CUDA count stood in by 8, the reference's 8
 virtual devices) and TMTPU_FORCE_SHARDED drops the size gate at each
-call (the port on 8 logical CPU shards)."""
+call (the port on 8 logical CPU shards). The sidecar's and the tx
+ingress's knobs (TMTPU_VERIFYD_* and TMTPU_INGRESS_*) are read when their
+object is built, each set (over an explicit argument, where there is
+one) and unset, all in one fresh interpreter per package."""
 
 from __future__ import annotations
 
@@ -107,3 +110,64 @@ def test_port_reads_the_mesh_knob_as_the_reference_does(knob):
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.splitlines()[-1]) == want
+
+
+#: knobs read when an object is built: the value set, and how each
+#: package builds the object and reads the knob's field (`pkg` is the
+#: package's name; `dev` the port's device argument, empty for the
+#: reference)
+BUILD_KNOBS = {
+    "TMTPU_VERIFYD_TIMEOUT": ("7.5", "vd.VerifydClient('/nonexistent').io_timeout"),
+    "TMTPU_VERIFYD_BREAKER_THRESHOLD": (
+        "4", "vd.VerifydClient('/nonexistent').breaker.failure_threshold"),
+    "TMTPU_VERIFYD_BREAKER_RESET": ("0.25", "vd.VerifydClient('/nonexistent').breaker.reset_timeout"),
+    "TMTPU_VERIFYD_INFLIGHT": ("77", "vd.VerifyDaemon('/nonexistent', max_inflight=5, **dev).max_inflight"),
+    "TMTPU_VERIFYD_SOCK": ("/tmp/x.sock", "vh.VerifyHub(verifyd_sock='/explicit', **dev).verifyd_sock"),
+    "TMTPU_INGRESS_DEPTH": ("33", "ingress().depth"),
+    "TMTPU_INGRESS_WORKERS": ("5", "ingress().verify_workers"),
+    "TMTPU_INGRESS_LANE_DEPTH": ("6", "ingress().lane_depth"),
+    "TMTPU_INGRESS_PARK_MS": ("12.5", "ingress().park_timeout_ns"),
+    "TMTPU_INGRESS_CHECKTX_BATCH": ("9", "ingress().checktx_batch"),
+}
+
+
+def _build_knob_readings(pkg: str) -> dict:
+    dev = "{'device': 'cpu'}" if pkg == "tendermint_tpu_torch" else "{}"
+    env = {k: v for k, v in os.environ.items() if k not in BUILD_KNOBS}
+    env.update(JAX_PLATFORMS="cpu", TMTPU_DISABLE_TPU="1")
+    code = (
+        "import json, os\n"
+        + ("import jax\njax.config.update('jax_platforms', 'cpu')\n" if pkg == "tendermint_tpu" else "")
+        + f"from {pkg}.crypto import verifyd as vd, verify_hub as vh\n"
+        f"from {pkg}.abci.application import BaseApplication\n"
+        f"from {pkg}.abci.client import LocalClient\n"
+        f"from {pkg}.config import MempoolConfig\n"
+        f"from {pkg}.mempool.ingress import TxIngress\n"
+        f"from {pkg}.mempool.pool import PriorityMempool\n"
+        f"dev = {dev}\n"
+        "def ingress():\n"
+        "    cfg = MempoolConfig()\n"
+        "    return TxIngress(cfg.ingress, PriorityMempool(cfg, LocalClient(BaseApplication())))\n"
+        "out = {}\n"
+        f"for knob, (value, read) in {BUILD_KNOBS!r}.items():\n"
+        "    os.environ[knob] = value\n"
+        "    got_set = eval(read)\n"
+        "    del os.environ[knob]\n"
+        "    out[knob] = [got_set, eval(read)]\n"
+        "print(json.dumps(out))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+def test_port_reads_the_sidecar_and_ingress_knobs_as_the_reference_does():
+    ref = _build_knob_readings("tendermint_tpu")
+    port = _build_knob_readings("tendermint_tpu_torch")
+    assert port == ref
+    assert port["TMTPU_VERIFYD_TIMEOUT"] == [7.5, 60.0]
+    assert port["TMTPU_VERIFYD_INFLIGHT"] == [77, 5]
+    assert port["TMTPU_VERIFYD_SOCK"] == ["/tmp/x.sock", "/explicit"]
+    assert port["TMTPU_INGRESS_PARK_MS"] == [12_500_000, 3_000_000_000]
+    assert port["TMTPU_INGRESS_DEPTH"] == [33, 2048]

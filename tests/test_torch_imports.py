@@ -568,3 +568,102 @@ def test_scan_and_blocked_import_cover_the_mesh_modules():
     from tendermint_tpu_torch.crypto.cuda import verify
 
     assert callable(verify.make_sharded_kernel_eq) and callable(verify.make_sharded_kernel)
+
+
+SIDECAR_MODULES = [
+    "tendermint_tpu_torch.cli",
+    "tendermint_tpu_torch.crypto.backend_telemetry",
+    "tendermint_tpu_torch.crypto.verifyd",
+    "tendermint_tpu_torch.evidence.pool",
+    "tendermint_tpu_torch.evidence.reactor",
+    "tendermint_tpu_torch.mempool.ingress",
+    "tendermint_tpu_torch.mempool.pool",
+    "tendermint_tpu_torch.mempool.reactor",
+]
+
+
+def test_scan_and_blocked_import_cover_the_sidecar_modules():
+    """The AST scan and the jax-blocked import walk every module of the
+    package; the sidecar's, the CLI's, the mempool's and the evidence
+    pool's are among them, and the config sections they read are there."""
+    assert set(SIDECAR_MODULES) <= set(_port_modules())
+    from tendermint_tpu_torch import config
+
+    assert config.VerifyHubConfig().verifyd_sock == ""
+    assert config.MempoolConfig().ingress.depth == 2048
+    assert config.EvidenceConfig().max_pending == 1000
+
+
+def _sidecar_entry_points():
+    import os
+    import tempfile
+
+    from tendermint_tpu_torch import cli
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.crypto.verifyd import VerifyDaemon
+    from tendermint_tpu_torch.evidence.pool import EvidencePool
+    from tendermint_tpu_torch.store.db import MemDB
+
+    def daemon(**kw):
+        async def go():
+            d = VerifyDaemon(os.path.join(tempfile.mkdtemp(prefix="vd-"), "s"), **kw)
+            await d.start()
+            await d.stop()
+
+        asyncio.run(go())
+
+    def cli_verifyd(device=None):
+        sock = os.path.join(tempfile.mkdtemp(prefix="vd-"), "s")
+        args = ["verifyd", "--sock", sock, "--no-warm"] + (["--device", device] if device else [])
+        if device != "cpu":
+            return cli.main(args)
+        # on the host: the daemon serves `--stats` and exits 0 on SIGTERM
+        import signal
+        import subprocess
+        import sys
+        import time
+
+        proc = subprocess.Popen([sys.executable, "-m", "tendermint_tpu_torch.cli", *args],
+                                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            deadline = time.monotonic() + 60
+            while True:
+                st = subprocess.run([sys.executable, "-m", "tendermint_tpu_torch.cli", "verifyd",
+                                     "--sock", sock, "--stats"], cwd=REPO, capture_output=True,
+                                    text=True, timeout=60)
+                if st.returncode == 0 or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+            assert st.returncode == 0, st.stderr
+            assert '"protocol_version": 1' in st.stdout
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(30) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def evidence_pool(**kw):
+        bstore, sstore, _conns, _state = asyncio.run(tt.build_kvstore_chain(
+            tt.make_genesis(tt.det_priv_keys(2), "c"), tt.det_priv_keys(2), 2, device="cpu"
+        ))
+        return EvidencePool(MemDB(), sstore, bstore, **kw)
+
+    return {"EvidencePool": evidence_pool, "VerifyDaemon": daemon, "cli verifyd": cli_verifyd}
+
+
+SIDECAR_ENTRY_POINTS = ["EvidencePool", "VerifyDaemon", "cli verifyd"]
+
+
+@pytest.mark.parametrize("name", SIDECAR_ENTRY_POINTS)
+def test_sidecar_entry_points_raise_without_cuda_unless_cpu_requested(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    points = _sidecar_entry_points()
+    assert sorted(points) == SIDECAR_ENTRY_POINTS
+    fn = points[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(device="cuda")
+    fn(device="cpu")  # the host, when asked for, works
