@@ -277,6 +277,49 @@ failure exits non-zero, nothing is caught and carried past):
      verdicts, errors and the routes (each check's signatures are under
      the cutoff: the host); then the reactor carries both valid
      evidences from one pool to another over Channels;
+ 23. consensus ingest (after phase 22): bench.py's bench_consensus_ingest
+     (:1396-1571) at 150 validators (the bench's 64 raised to the north
+     star's), 6 waves, 8 peers, 98 votes per (round, type) so that no
+     tally reaches 2/3 (392 a wave), into one parked observer
+     `harness.Node(genesis, None, device="cuda")`. (a) The bench's own
+     shape, a hub on the card at max_batch 256 and a 2 ms window: the
+     sequential facade (2 waves), then the pipeline (6 waves, 256 in
+     flight) beside a 128-signature backfill feeder; votes/s of each, the
+     speed-up, the hub's occupancy, the live/backfill lane split, the
+     ingest's pre_verified / dedup_drops / unverified / hub_errors and the
+     route of every dispatch (printed, not asserted: each is under the
+     cutoff); every vote must be pre-verified, none unverified. (b) The
+     wide burst: the observer's HeightVoteSet opened to round 13
+     (set_round(12)), all 2,744 votes of rounds 0-13 fed at once by 8
+     peers, 4,096 in flight, a hub at max_batch 8,192 whose 1,000 ms
+     window lets them meet: a dispatch at or above the cutoff must route
+     "cuda" and run kernel_eq with every chunk holding and B1-B3
+     launched, every vote tallied, pre_verified 2,744 and unverified and
+     hub_errors 0. (c) The same burst signed anew with one vote's
+     signature bit flipped, that vote coming through a ConsensusReactor's
+     vote Channel from peer "p3": kernel_eq must fail and kernel_sig find
+     exactly that signature false, sig_invalid 1, one PeerError naming
+     "p3", and the other 2,743 votes tallied;
+ 24. live consensus on the card (after phase 23): the frozen-clock recipe
+     of tests/test_bls.py:655-730 (3 equal-power validators, a ManualClock
+     500 ms behind genesis, 60 s propose/prevote/precommit timeouts, so
+     that round 0 always completes and every block is a pure function of
+     its height), each network's nodes sharing one hub on the card at its
+     defaults. (a) LocalNetwork(3, device="cuda") to height 4: blocks 1-4
+     and the seen commit at 4 byte-equal to the same network's on the host
+     (device="cpu", no hub); heights/s, the hub's routes and cache hits,
+     the ingest's pre_verified / unverified. (c) On that network, node 0
+     crashes at fail point 3 (block saved, end-height marker written)
+     at a height whose successor it proposes, its WAL's last write torn;
+     a second Node on its stores, app and WAL directory (device="cuda")
+     repairs the WAL (`report_wal_repair`'s lines printed), replays, and
+     commits the next height with the others. (b) LocalNetwork(3,
+     key_type="bls12381") with commit_scheme "bls-aggregate" to height 3:
+     blocks 2 and 3 carry aggregate LastCommits whose checks launch K7a
+     and K7b on the card, each check's wall and host/card split printed,
+     and blocks 1-3 byte-equal to the same network on the host (a hub on
+     the CPU, whose verdict cache answers repeated checks). K7a and K7b
+     are held at its pairing shape with phases 17-18's;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
@@ -284,8 +327,8 @@ failure exits non-zero, nothing is caught and carried past):
      included), the light paths (phase 13: the 7-chunk range, the
      client's windows, the tampered range), the 48-height per-signature
      backfill of phase 18, the sharded paths of phase 19, the daemon's
-     packed ranges (phase 20) and the wide tx flood (phase 21) gave B1,
-     B2 and B3 is held
+     packed ranges (phase 20), the wide tx flood (phase 21) and the wide
+     and tampered vote bursts (phase 23) gave B1, B2 and B3 is held
      against the plain version with torch.equal, on the inputs the path
      gave and on worst-case inputs of the same shapes; phase 2's sizes
      must be sizes the main path gives; the largest size of each kernel
@@ -297,8 +340,9 @@ after (the block-sync reactor verifies in a worker thread; its launches
 count too). Prints the card's name and power limit, `breakdown`,
 `sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `light`, `bls`,
 `statesync`, `sha256`, `light_fleet`, `statesync_fleet`, `sharded`,
-`verifyd`, `tx_ingress`, `evidence`, `fleet_pairing_shapes` (K7a/K7b at
-phases 17-18's and 20's shapes), `shapes`, `sharded_rows`, `slice`,
+`verifyd`, `tx_ingress`, `evidence`, `consensus_ingest`,
+`consensus_live`, `fleet_pairing_shapes` (K7a/K7b at phases 17-18's and
+24's shapes), `shapes`, `sharded_rows`, `slice`,
 `kernels` and `script_wall_s`
 JSON lines, and last {"ok": true,
 "device": {...}}. Imports nothing of JAX or of the JAX
@@ -4753,6 +4797,557 @@ def drive_evidence(dev) -> dict:
     return out
 
 
+# -- phase 23 -----------------------------------------------------------------
+
+# phase 23: bench.py's bench_consensus_ingest (:1396-1571) at the north
+# star's 150 validators (the bench's 64 raised), 6 waves and 8 peers: one
+# parked observer node (no private validator), every (round, type) tally
+# held below 2/3 (98 votes, `testing.ingest_cap`); then the wide burst,
+# every vote of the observer's open rounds 0-13 at once, and its tampered
+# twin, whose bad vote comes through a ConsensusReactor's vote Channel
+CI_VALS, CI_WAVES, CI_SEQ_WAVES, CI_PEERS = 150, 6, 2, 8
+CI_INFLIGHT, CI_MAX_BATCH, CI_WINDOW_MS = 256, 256, 2.0
+CI_BACKFILL = 128
+CI_WIDE_SET_ROUND = 12  # set_round(12) opens rounds 0-13
+CI_WIDE_INFLIGHT, CI_WIDE_MAX_BATCH, CI_WIDE_WINDOW_MS = 4096, 8192, 1000.0
+CI_TAMPER_PEER = "p3"
+CI_TIMEOUT_S = 120.0
+CI_MAIN = "consensus_ingest[wide burst, 2,744 votes]"
+CI_TAMPERED = "consensus_ingest[wide burst, tampered]"
+# phase 24: the frozen-clock recipe of tests/test_bls.py:655-730 on the card
+CL_VALS = 3
+CL_ED_HEIGHT, CL_BLS_HEIGHT = 4, 3
+CL_TIMEOUT_S = 240.0
+CL_ED = "consensus_live[ed25519, 3 validators]"
+CL_BLS = "consensus_live[bls-aggregate, 3 validators]"
+
+
+@contextlib.contextmanager
+def _hub_dispatches(hub):
+    """Every dispatch of `hub` while open: its signatures, route and the
+    signatures it found false."""
+    log: list[dict] = []
+    real = hub._verify_batch
+
+    def verify_batch(batch):
+        results = real(batch)
+        log.append({"n": len(batch), "route": getattr(hub._route_local, "route", "cpu"),
+                    "false": [p.sig for p, ok in zip(batch, results) if not ok]})
+        return results
+
+    hub._verify_batch = verify_batch
+    try:
+        yield log
+    finally:
+        del hub._verify_batch
+
+
+async def _observer_run(dev, genesis, waves, *, pipeline: bool, inflight: int,
+                        rounds: int = 2, set_round: int | None = None,
+                        reactor_vote=None) -> dict:
+    """bench.py's run_mode on the port: a parked observer Node on `dev`
+    fed each wave by CI_PEERS concurrent peers (and `reactor_vote`, if
+    any, through a ConsensusReactor's vote Channel from CI_TAMPER_PEER),
+    waiting until every valid vote is tallied, the vote set reset between
+    waves. Returns votes/s, the wall from the first submit to the last
+    apply, the ingest stats and the reactor's PeerErrors."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.consensus import harness
+    from tendermint_tpu_torch.consensus import messages as m
+    from tendermint_tpu_torch.consensus.reactor import VOTE_CHANNEL, ConsensusReactor
+    from tendermint_tpu_torch.consensus.types import HeightVoteSet
+    from tendermint_tpu_torch.p2p.types import Envelope
+    from tendermint_tpu_torch.types.keys import SignedMsgType
+
+    cfg = harness.fast_config()
+    cfg.ingest_pipeline = pipeline
+    cfg.ingest_max_inflight = inflight
+    cfg.timeout_propose_ns = 3_600 * 10**9  # park the observer: tally, never drive rounds
+    cfg.timeout_commit_ns = 0
+    wal_dir = tempfile.mkdtemp(prefix="ci-wal-")
+    node = harness.Node(genesis, None, config=cfg, wal_dir=wal_dir, device=dev)
+    await node.start()
+    cs = node.cs
+    chans, reactor, drains, errors = None, None, [], []
+    if reactor_vote is not None:
+        chans = tt.consensus_channels()
+        reactor = ConsensusReactor(cs, *chans, asyncio.Queue())
+        await reactor.start()
+
+        async def drain(ch):  # no peer: drop what the reactor sends
+            while True:
+                await ch.out_q.get()
+
+        drains = [asyncio.ensure_future(drain(ch)) for ch in chans]
+    applied = []
+    handle = cs._handle_msg
+
+    def record(mi):
+        applied.append(time.perf_counter())
+        return handle(mi)
+
+    cs._handle_msg = record
+    vals = cs.rs.validators
+
+    def tallied() -> int:
+        n = 0
+        for r in range(rounds):
+            for t in (SignedMsgType.PREVOTE, SignedMsgType.PRECOMMIT):
+                vs = cs.rs.votes.prevotes(r) if t == SignedMsgType.PREVOTE else cs.rs.votes.precommits(r)
+                n += sum(1 for v in vs.votes if v is not None)
+        return n
+
+    async def peer(votes):
+        for v in votes:
+            await cs.add_vote(v, "bench-peer")
+
+    total, walls = 0, []
+    try:
+        t0 = time.perf_counter()
+        for votes in waves:
+            if set_round is not None:
+                cs.rs.votes.set_round(set_round)
+            t_wave = time.perf_counter()
+            tasks = [asyncio.ensure_future(peer(votes[p::CI_PEERS])) for p in range(CI_PEERS)]
+            if reactor_vote is not None:
+                await chans[2].in_q.put(Envelope(VOTE_CHANNEL, m.VoteMessage(reactor_vote),
+                                                 from_=CI_TAMPER_PEER))
+            await asyncio.gather(*tasks)
+            deadline = time.perf_counter() + CI_TIMEOUT_S
+            while tallied() < len(votes):
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"tallied {tallied()} of {len(votes)} votes")
+                await asyncio.sleep(0.002)
+            if reactor_vote is not None:
+                deadline = time.perf_counter() + CI_TIMEOUT_S
+                while not errors and time.perf_counter() < deadline:
+                    try:
+                        errors.append(await asyncio.wait_for(chans[2].err_q.get(), 0.05))
+                    except asyncio.TimeoutError:
+                        pass
+                await asyncio.sleep(0.1)  # any second report would be queued by now
+                while not chans[2].err_q.empty():
+                    errors.append(chans[2].err_q.get_nowait())
+            walls.append(max(applied) - t_wave)
+            total += len(votes)
+            if reactor_vote is not None:
+                rv = reactor_vote
+                vs = cs.rs.votes.prevotes(rv.round) if rv.type == SignedMsgType.PREVOTE \
+                    else cs.rs.votes.precommits(rv.round)
+                if vs.get_vote(rv.validator_index) is not None:
+                    raise AssertionError("the tampered vote was tallied")
+            cs.rs.votes = HeightVoteSet(cs.state.chain_id, cs.rs.height, vals)
+        dt = time.perf_counter() - t0
+        stats = dict(cs.ingest.stats) if cs.ingest else {}
+    finally:
+        for d in drains:
+            d.cancel()
+        await asyncio.gather(*drains, return_exceptions=True)
+        if reactor is not None:
+            await reactor.stop()
+        await node.stop()
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    return {"votes": total, "votes_per_s": total / dt, "dt_s": dt,
+            "first_submit_to_last_apply_s": walls, "ingest": stats,
+            "peer_errors": [(e.node_id, e.err) for e in errors]}
+
+
+def drive_consensus_ingest(dev, audit: "ShapeAudit") -> dict:
+    """Phase 23: one node's vote ingest at 150 validators (see the module
+    docstring)."""
+    import asyncio
+    import threading
+    from dataclasses import replace
+
+    from tendermint_tpu_torch import testing as tt
+    from tendermint_tpu_torch.consensus import harness
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+    from tendermint_tpu_torch.state.state import state_from_genesis
+
+    t0 = time.perf_counter()
+    genesis, keys = harness.make_genesis(CI_VALS)
+    vals = state_from_genesis(genesis).validators
+    chain = genesis.chain_id
+    cap = tt.ingest_cap(CI_VALS)
+    waves = tt.make_vote_waves(chain, vals, keys, 1, CI_WAVES)
+    wide_rounds = CI_WIDE_SET_ROUND + 2
+    wide = tt.make_vote_waves(chain, vals, keys, 1, 1, rounds=wide_rounds, first_wave=CI_WAVES)[0]
+    bad_wide = tt.make_vote_waves(chain, vals, keys, 1, 1, rounds=wide_rounds,
+                                  first_wave=CI_WAVES + 1)[0]
+    bad_at = len(bad_wide) // 2 + 17
+    sig = bad_wide[bad_at].signature
+    bad_vote = replace(bad_wide[bad_at], signature=bytes([sig[0] ^ 1]) + sig[1:])
+    others = bad_wide[:bad_at] + bad_wide[bad_at + 1:]
+    out: dict = {"validators": CI_VALS, "cap": cap, "waves": CI_WAVES, "peers": CI_PEERS,
+                 "min_tpu_batch": batch.MIN_TPU_BATCH, "sign_s": time.perf_counter() - t0}
+    if len(waves[0]) != 4 * cap or len(wide) != 2 * wide_rounds * cap:
+        raise AssertionError(f"wave sizes {len(waves[0])} / {len(wide)}")
+
+    # (a) the bench's own shape: the sequential facade, then the pipeline
+    # with the backfill feeder
+    hub = vh.acquire_hub(device=dev, max_batch=CI_MAX_BATCH, window_ms=CI_WINDOW_MS,
+                         cache_size=8192)
+    try:
+        with _hub_dispatches(hub) as log:
+            seq = asyncio.run(_observer_run(dev, genesis, waves[:CI_SEQ_WAVES], pipeline=False,
+                                            inflight=CI_INFLIGHT))
+        hs = hub.stats()
+    finally:
+        vh.release_hub()
+    seq.update(occupancy=hs["mean_occupancy"], routes=_split_by_route(
+        [(d["n"], d["route"]) for d in log]), hub_verify_errors=hs["verify_errors"])
+    hub = vh.acquire_hub(device=dev, max_batch=CI_MAX_BATCH, window_ms=CI_WINDOW_MS,
+                         cache_size=8192)
+    try:
+        bf_pub = keys[0].pub_key()
+        bf_items = [(bf_pub, b"ingest-backfill-%d" % i, keys[0].sign(b"ingest-backfill-%d" % i))
+                    for i in range(CI_BACKFILL)]
+        bf_out: list = []
+        feeder = threading.Thread(target=lambda: bf_out.append(
+            hub.verify_many(bf_items, lane="backfill")))
+        with _hub_dispatches(hub) as log:
+            feeder.start()
+            pipe = asyncio.run(_observer_run(dev, genesis, waves, pipeline=True,
+                                             inflight=CI_INFLIGHT))
+            feeder.join()
+        hs = hub.stats()
+    finally:
+        vh.release_hub()
+    if bf_out != [[True] * CI_BACKFILL]:
+        raise AssertionError("the backfill feeder's verdicts")
+    ing = pipe["ingest"]
+    n_votes = CI_WAVES * 4 * cap
+    if (ing["pre_verified"], ing["unverified"], ing["hub_errors"]) != (n_votes, 0, 0) \
+            or hs["verify_errors"] or seq["hub_verify_errors"]:
+        raise AssertionError(f"pipelined ingest: {ing}, hub {hs}")
+    out["bench"] = {
+        "sequential": seq, "pipelined": pipe,
+        "sequential_votes_per_s": seq["votes_per_s"],
+        "pipelined_votes_per_s": pipe["votes_per_s"],
+        "speedup_vs_sequential": pipe["votes_per_s"] / seq["votes_per_s"],
+        "mean_batch_occupancy": hs["mean_occupancy"],
+        "lane_live_sigs": hs["lane_live_dispatched"],
+        "lane_backfill_sigs": hs["lane_backfill_dispatched"],
+        "lane_promotions": hs["lane_promotions"],
+        "pre_verified": ing["pre_verified"], "dedup_drops": ing["dedup_drops"],
+        "unverified": ing["unverified"], "hub_errors": ing["hub_errors"],
+        "routes": _split_by_route([(d["n"], d["route"]) for d in log]),
+        "dispatch_sizes": [d["n"] for d in log],
+    }
+
+    # (b) the wide burst, then (c) its tampered twin
+    for name, path, feed, rv in (("wide", CI_MAIN, wide, None),
+                                 ("tampered", CI_TAMPERED, others, bad_vote)):
+        hub = vh.acquire_hub(device=dev, max_batch=CI_WIDE_MAX_BATCH,
+                             window_ms=CI_WIDE_WINDOW_MS, cache_size=0)
+        blog = BatchLog()
+        try:
+            _launch_counts(reset=True)
+            with audit.recording(path), blog.recording(), _hub_dispatches(hub) as log:
+                run = asyncio.run(_observer_run(
+                    dev, genesis, [feed], pipeline=True, inflight=CI_WIDE_INFLIGHT,
+                    rounds=wide_rounds, set_round=CI_WIDE_SET_ROUND, reactor_vote=rv))
+            _sync(dev)
+            launches = _launch_counts()
+            hs = hub.stats()
+        finally:
+            vh.release_hub()
+        ing = run["ingest"]
+        wide_ds = [d for d in log if d["n"] >= batch.MIN_TPU_BATCH]
+        if not wide_ds or any(d["route"] != "cuda" for d in wide_ds):
+            raise AssertionError(f"{name}: dispatches {[(d['n'], d['route']) for d in log]}")
+        _require_all_launched(path, launches)
+        n_sub = len(feed) + (rv is not None)
+        false = [s for d in log for s in d["false"]]
+        if rv is None:
+            if not blog.chunks or not all(blog.chunks) or false:
+                raise AssertionError(f"wide burst: chunks {blog.chunks}, false {len(false)}")
+            want = (len(wide), 0, 0, 0)
+        else:
+            if all(blog.chunks) or blog.kernel_sig < 1 or false != [bad_vote.signature]:
+                raise AssertionError(f"tampered burst: chunks {blog.chunks}, kernel_sig "
+                                     f"{blog.kernel_sig}, false {len(false)}")
+            errs = run["peer_errors"]
+            if len(errs) != 1 or errs[0][0] != CI_TAMPER_PEER:
+                raise AssertionError(f"peer errors {errs}")
+            want = (len(others), 1, 0, 0)
+        got = (ing["pre_verified"], ing["sig_invalid"], ing["unverified"], ing["hub_errors"])
+        if got != want or ing["submitted"] != n_sub or hs["verify_errors"]:
+            raise AssertionError(f"{name}: ingest {ing}, hub {hs}")
+        out[name] = {
+            "votes": n_sub, "votes_per_s": run["votes_per_s"],
+            "first_submit_to_last_apply_s": run["first_submit_to_last_apply_s"][0],
+            "hub_max_batch": CI_WIDE_MAX_BATCH, "hub_window_ms": CI_WIDE_WINDOW_MS,
+            "ingest_max_inflight": CI_WIDE_INFLIGHT,
+            "dispatches": [(d["n"], d["route"]) for d in log],
+            "kernel_eq_chunks_held": blog.chunks, "kernel_sig_calls": blog.kernel_sig,
+            "launches": launches, "ingest": ing, "peer_errors": run["peer_errors"],
+            "hub_occupancy": hs["mean_occupancy"],
+        }
+        if rv is not None:
+            out[name]["tampered_vote"] = {"round": rv.round, "type": int(rv.type),
+                                          "validator_index": rv.validator_index}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# -- phase 24 -----------------------------------------------------------------
+
+
+def _frozen_config(scheme: str = "per-sig"):
+    """The frozen-clock recipe's config: fast_config with 60 s propose,
+    prevote and precommit timeouts, so that round 0 always completes."""
+    from tendermint_tpu_torch.consensus import harness
+
+    cfg = harness.fast_config()
+    cfg.commit_scheme = scheme
+    for f in ("timeout_propose_ns", "timeout_prevote_ns", "timeout_precommit_ns"):
+        setattr(cfg, f, 60_000 * 1_000_000)
+    return cfg
+
+
+def _frozen_net(dev, key_type: str = "ed25519", scheme: str = "per-sig"):
+    from tendermint_tpu_torch.consensus import harness
+    from tendermint_tpu_torch.libs.clock import ManualClock
+
+    return harness.LocalNetwork(
+        CL_VALS, config=_frozen_config(scheme), key_type=key_type, device=dev,
+        base_clock=ManualClock(harness.GENESIS_TIME_NS - 500 * 1_000_000))
+
+
+def _chain_bytes(net, height: int) -> tuple[list, bytes]:
+    """Blocks 1..height (every node must store the same ones) and node 0's
+    seen commit at `height`, encoded."""
+    blocks = [net.nodes[0].block_store.load_block(h).encode() for h in range(1, height + 1)]
+    for n in net.nodes[1:]:
+        if [n.block_store.load_block(h).encode() for h in range(1, height + 1)] != blocks:
+            raise AssertionError("the nodes stored different blocks")
+    return blocks, net.nodes[0].block_store.load_seen_commit(height).encode()
+
+
+def _ingest_sums(net) -> dict:
+    keys = ("pre_verified", "unverified", "sig_invalid", "hub_errors")
+    return {k: sum(n.cs.ingest.stats[k] for n in net.nodes if n.cs is not None) for k in keys}
+
+
+async def _host_chain(key_type: str, scheme: str, height: int, hub: bool) -> tuple:
+    """The same frozen-clock network on the host (device="cpu"; a CPU hub
+    when `hub`, whose verdict cache answers repeated aggregate checks)."""
+    import shutil
+
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+
+    if hub:
+        vh.acquire_hub(device="cpu")
+    net = _frozen_net("cpu", key_type, scheme)
+    try:
+        await net.start()
+        t0 = time.perf_counter()
+        await net.wait_for_height(height, CL_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        return _chain_bytes(net, height), wall
+    finally:
+        await net.stop()
+        for n in net.nodes:
+            shutil.rmtree(n.wal_dir, ignore_errors=True)
+        if hub:
+            vh.release_hub()
+
+
+async def _crash_and_resume(dev, net) -> dict:
+    """Phase 24(c), on the running ed25519 network `net`: node 0 crashes
+    at fail point 3 (its block saved and the WAL's end-height marker
+    written, before ApplyBlock) at a height H whose successor node 0
+    proposes; its WAL's last write is torn; a second Node is built on its
+    stores, app and WAL directory; it must repair and replay the WAL and
+    commit H + 1 with the others."""
+    import asyncio
+    import io
+    import logging
+    import sys as _sys
+
+    from tendermint_tpu_torch.consensus import harness
+    from tendermint_tpu_torch.consensus.replay import report_wal_repair
+    from tendermint_tpu_torch.libs import fail
+
+    node0 = net.nodes[0]
+    cs0 = node0.cs
+    me = node0.priv_val.get_pub_key().address()
+    vals = cs0.state.validators
+    cur = cs0.rs.height
+    height = next(h for h in range(cur + 2, cur + 2 + 2 * CL_VALS)
+                  if vals.copy_increment_proposer_priority(h + 1 - cur).get_proposer().address == me)
+    crashed = asyncio.Event()
+
+    def crash(point):
+        cs = _sys._getframe(2).f_locals.get("self")  # fail_point's caller: _finalize_commit
+        if cs is cs0 and cs.rs.height == height:
+            crashed.set()
+            raise fail.InjectedCrash(point)
+
+    fail.set_crash_callback(crash, index=3)
+    try:
+        await asyncio.wait_for(crashed.wait(), CL_TIMEOUT_S)
+    finally:
+        fail.reset()
+    await node0.stop()  # its receive task is dead: the crashed process
+    with open(f"{node0.wal_dir}/wal", "ab") as f:
+        f.write(b"\x2a\x00\x00\x00\x30\x00\x00\x00torn")  # a torn last write
+    node = harness.Node(net.genesis, net.keys[0], config=node0.config, clock=node0.clock,
+                        wal_dir=node0.wal_dir, app=node0.app,
+                        block_store=node0.block_store, state_store=node0.state_store,
+                        device=dev)
+    buf = io.StringIO()
+    handler = logging.StreamHandler(buf)
+    logger = logging.getLogger("replay")
+    logger.addHandler(handler)
+    try:
+        report_wal_repair(node.wal)
+    finally:
+        logger.removeHandler(handler)
+    t0 = time.perf_counter()
+    await node.start()
+    node.cs.broadcast_hook = net._make_hook(0)
+    net.nodes[0] = node
+    await asyncio.gather(*(n.cs.wait_for_height(height + 1, CL_TIMEOUT_S) for n in net.nodes))
+    if len({n.block_store.load_block(height + 1).encode() for n in net.nodes}) != 1:
+        raise AssertionError("the resumed node stored another block")
+    return {"crash_height": height, "crash_point": 3, "resumed_commit_height": height + 1,
+            "report_wal_repair": buf.getvalue().splitlines(),
+            "wal_repairs": len(node.wal.last_repair),
+            "resume_to_commit_s": time.perf_counter() - t0}
+
+
+def drive_consensus_live(dev, pairing: "PairingAudit") -> dict:
+    """Phase 24: live consensus on the card, byte-checked against the host
+    (see the module docstring)."""
+    import asyncio
+    import shutil
+
+    from tendermint_tpu_torch.crypto import batch as B
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.types.block import Block
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    trace.configure(enabled=True)  # the BLS host split comes from the `bls` spans
+
+    async def card_run(key_type, scheme, height, resume=False):
+        hub = vh.acquire_hub(device=dev)
+        net = _frozen_net(dev, key_type, scheme)
+        resumed = None
+        try:
+            with _hub_dispatches(hub) as log:
+                await net.start()
+                t0 = time.perf_counter()
+                await net.wait_for_height(height, CL_TIMEOUT_S)
+                wall = time.perf_counter() - t0
+                chain = _chain_bytes(net, height)
+                ingest = _ingest_sums(net)
+                if resume:
+                    resumed = await _crash_and_resume(dev, net)
+            hs = hub.stats()
+        finally:
+            await net.stop()
+            for n in net.nodes:
+                shutil.rmtree(n.wal_dir, ignore_errors=True)
+            vh.release_hub()
+        return chain, wall, ingest, hs, log, resumed
+
+    # (a) ed25519, with (c) the crash and resume on the same network
+    _launch_counts(reset=True)
+    (blocks, seen), wall, ingest, hs, log, resumed = asyncio.run(
+        card_run("ed25519", "per-sig", CL_ED_HEIGHT, resume=True))
+    launches = _launch_counts()
+    (h_blocks, h_seen), h_wall = asyncio.run(_host_chain("ed25519", "per-sig", CL_ED_HEIGHT, False))
+    if blocks != h_blocks or seen != h_seen:
+        raise AssertionError("the card's ed25519 chain differs from the host's")
+    if ingest["hub_errors"] or hs["verify_errors"]:
+        raise AssertionError(f"ed25519 net: ingest {ingest}, hub {hs}")
+    out["ed25519"] = {
+        "validators": CL_VALS, "height": CL_ED_HEIGHT, "wall_s": wall,
+        "heights_per_s": CL_ED_HEIGHT / wall, "host_wall_s": h_wall,
+        "host_heights_per_s": CL_ED_HEIGHT / h_wall,
+        "blocks_and_seen_commit_equal_to_host": True, "block_bytes": [len(b) for b in blocks],
+        "routes": _split_by_route([(d["n"], d["route"]) for d in log]),
+        "hub_cache_hits": hs["cache_hits"], "hub_dispatches": hs["dispatches"],
+        "ingest": ingest, "launches": launches,
+    }
+    out["crash_resume"] = resumed
+
+    # (b) BLS aggregate commits: each aggregate LastCommit check timed, its
+    # host split from the `bls` spans and the card's share in the kernels
+    checks: list = []
+    real_agg = B.bls_aggregate_verify
+    real_miller, real_final = BP.miller, BP.final_exp
+    in_kernels = [0.0]
+
+    def timed(fn):
+        def call(*a):
+            _sync(dev)
+            t = time.perf_counter()
+            r = fn(*a)
+            _sync(dev)
+            in_kernels[0] += time.perf_counter() - t
+            return r
+        return call
+
+    def agg_verify(pub_keys, msgs, agg_sig, device=None):
+        before = _bls_host_split()
+        in_kernels[0] = 0.0
+        t = time.perf_counter()
+        ok = real_agg(pub_keys, msgs, agg_sig, device)
+        wall_s = time.perf_counter() - t
+        split = {k: v - before[k] for k, v in _bls_host_split().items()}
+        checks.append({"signers": len(pub_keys), "ok": ok, "wall_s": wall_s, "host_split": split,
+                       "card_kernels_s": in_kernels[0],
+                       "host_other_s": wall_s - sum(split.values()) - in_kernels[0]})
+        return ok
+
+    _launch_counts(reset=True)
+    B.bls_aggregate_verify = agg_verify
+    BP.miller, BP.final_exp = timed(real_miller), timed(real_final)
+    try:
+        with pairing.recording(CL_BLS):
+            (bls_blocks, bls_seen), bls_wall, bls_ingest, bls_hs, bls_log, _ = asyncio.run(
+                card_run("bls12381", "bls-aggregate", CL_BLS_HEIGHT))
+        _sync(dev)
+    finally:
+        B.bls_aggregate_verify = real_agg
+        BP.miller, BP.final_exp = real_miller, real_final
+    bls_launches = _launch_counts()
+    _require_all_launched(CL_BLS, bls_launches, (BP.MILLER.name, BP.FINAL_EXP.name))
+    for h in (2, 3):
+        if not Block.decode(bls_blocks[h - 1]).last_commit.is_aggregate():
+            raise AssertionError(f"block {h}'s LastCommit is not aggregate")
+    if not checks or not all(c["ok"] for c in checks):
+        raise AssertionError(f"aggregate checks {checks}")
+    (hb_blocks, hb_seen), hb_wall = asyncio.run(
+        _host_chain("bls12381", "bls-aggregate", CL_BLS_HEIGHT, True))
+    if bls_blocks != hb_blocks or bls_seen != hb_seen:
+        raise AssertionError("the card's BLS chain differs from the host's")
+    if bls_ingest["hub_errors"] or bls_hs["verify_errors"]:
+        raise AssertionError(f"bls net: ingest {bls_ingest}, hub {bls_hs}")
+    out["bls_aggregate"] = {
+        "validators": CL_VALS, "height": CL_BLS_HEIGHT, "wall_s": bls_wall,
+        "wall_per_height_s": bls_wall / CL_BLS_HEIGHT, "host_wall_s": hb_wall,
+        "blocks_equal_to_host": True, "aggregate_last_commits": [2, 3],
+        "aggregate_checks": checks, "launches": bls_launches,
+        "routes": _split_by_route([(d["n"], d["route"]) for d in bls_log]),
+        "hub_cache_hits": bls_hs["cache_hits"], "ingest": bls_ingest,
+        "pairing_shapes": pairing.shapes(CL_BLS),
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4865,7 +5460,15 @@ def main() -> int:
     ev = drive_evidence(dev)
     ev["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"evidence": ev}))
-    # K7a and K7b at every shape phases 17-18 gave them, path and
+    t0 = time.perf_counter()
+    ci = drive_consensus_ingest(dev, audit)
+    ci["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"consensus_ingest": ci}))
+    t0 = time.perf_counter()
+    cl = drive_consensus_live(dev, fleet_pairing)
+    cl["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"consensus_live": cl}))
+    # K7a and K7b at every shape phases 17-18 and 24 gave them, path and
     # worst-case inputs
     t0 = time.perf_counter()
     fleet_held = _hold_pairing_shapes(dev, fleet_pairing)
@@ -4907,6 +5510,10 @@ def main() -> int:
         SSF_BLS: ssf["backfill_ab"]["bls_aggregate"]["launches"],
         **_sharded_by_path(sharded),
         **_sidecar_by_path(vd, tx, ev),
+        CI_MAIN: ci["wide"]["launches"],
+        CI_TAMPERED: ci["tampered"]["launches"],
+        CL_ED: cl["ed25519"]["launches"],
+        CL_BLS: cl["bls_aggregate"]["launches"],
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
@@ -4934,7 +5541,7 @@ def main() -> int:
         paths = {p for rec in held.get(name, []) for p in rec["calls"]}
         if not {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED, BS_MAIN, LC_MAIN,
                 LC_TAMPERED, SSF_DEEP, *(_sh_path("kernel_eq", n) for n in SH_SHARDS),
-                VD_PACKED, VD_TAMPERED, TX_CARD} <= paths:
+                VD_PACKED, VD_TAMPERED, TX_CARD, CI_MAIN, CI_TAMPERED} <= paths:
             raise AssertionError(f"{name}: shapes recorded on {sorted(paths)} only")
     print(json.dumps({"shapes": held}))
     for row in rows:

@@ -1,12 +1,62 @@
 """Node configuration — the port's copy of the sections of
-tendermint_tpu/config.py that it reads so far: `MempoolIngressConfig`,
-`MempoolConfig`, `EvidenceConfig`, `VerifyHubConfig`, `LightDConfig`
-and `BootDConfig`.
+tendermint_tpu/config.py that it reads so far: `ConsensusConfig`,
+`MempoolIngressConfig`, `MempoolConfig`, `EvidenceConfig`,
+`VerifyHubConfig`, `LightDConfig` and `BootDConfig`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+MS = 1_000_000  # ns per millisecond
+
+
+@dataclass
+class ConsensusConfig:
+    """Timeouts in nanoseconds (reference config/config.go:1069-1093).
+    Per-round growth: timeout = base + delta * round."""
+
+    timeout_propose_ns: int = 3_000 * MS
+    timeout_propose_delta_ns: int = 500 * MS
+    timeout_prevote_ns: int = 1_000 * MS
+    timeout_prevote_delta_ns: int = 500 * MS
+    timeout_precommit_ns: int = 1_000 * MS
+    timeout_precommit_delta_ns: int = 500 * MS
+    timeout_commit_ns: int = 1_000 * MS
+    skip_timeout_commit: bool = False
+    create_empty_blocks: bool = True
+    create_empty_blocks_interval_ns: int = 0
+    double_sign_check_height: int = 0
+    wal_path: str = "data/cs.wal"
+    # two-stage pipelined ingest (consensus/ingest.py): stage 1 verifies
+    # incoming vote/proposal signatures CONCURRENTLY through the async
+    # VerifyHub API (filling device-sized micro-batches from one node),
+    # stage 2 applies in strict arrival order via a reorder buffer.
+    # ingest_max_inflight bounds the in-flight verifications per node
+    # (backpressure into the reactor beyond it). Env mirrors:
+    # TMTPU_INGEST_PIPELINE=0 disables, TMTPU_INGEST_INFLIGHT overrides.
+    ingest_pipeline: bool = True
+    ingest_max_inflight: int = 64
+    # commit wire scheme: "per-sig" stores one signature per validator
+    # (any key type, EdDSA-batch verified); "bls-aggregate" folds a
+    # BLS validator set's precommits into ONE 96-byte aggregate at
+    # commit materialization (O(1) signature bytes per commit, pairing
+    # verify). Aggregation silently falls back to per-sig when any
+    # participating signer is not bls12381 (mixed sets). Env mirror:
+    # TMTPU_COMMIT_SCHEME (wins over TOML).
+    commit_scheme: str = "per-sig"
+
+    def propose_timeout_ns(self, round_: int) -> int:
+        return self.timeout_propose_ns + self.timeout_propose_delta_ns * round_
+
+    def prevote_timeout_ns(self, round_: int) -> int:
+        return self.timeout_prevote_ns + self.timeout_prevote_delta_ns * round_
+
+    def precommit_timeout_ns(self, round_: int) -> int:
+        return self.timeout_precommit_ns + self.timeout_precommit_delta_ns * round_
+
+    def commit_time_ns(self, t_ns: int) -> int:
+        return t_ns + self.timeout_commit_ns
 
 
 @dataclass

@@ -1,7 +1,16 @@
-"""Consensus layer (reference internal/consensus/): the port has the ABCI
-handshake (replay.py) so far; the state machine, the WAL and its repair
-wait for the consensus port."""
+"""Consensus layer (reference internal/consensus/; the port's copy of
+tendermint_tpu/consensus/): the state machine, its vote sets, WAL,
+ticker, pipelined ingest and reactor, and the ABCI handshake."""
 
 from .replay import AppHashMismatchError, Handshaker, HandshakeError
+from .wal import WAL, WALRecord, KIND_END_HEIGHT, KIND_MESSAGE
 
-__all__ = ["AppHashMismatchError", "Handshaker", "HandshakeError"]
+__all__ = [
+    "AppHashMismatchError",
+    "Handshaker",
+    "HandshakeError",
+    "WAL",
+    "WALRecord",
+    "KIND_END_HEIGHT",
+    "KIND_MESSAGE",
+]

@@ -5,8 +5,9 @@ for the executors it replays blocks through).
 
 Compares the app's last height (ABCI Info) with the store and state
 heights, sends InitChain on a fresh chain, replays stored blocks through
-the app as needed, and asserts app-hash agreement. The WAL and its
-repair wait for the consensus port."""
+the app as needed, and asserts app-hash agreement. Together with WAL
+replay (consensus/state.catchup_replay) and `report_wal_repair` this is
+the crash-recovery path."""
 
 from __future__ import annotations
 
@@ -21,6 +22,26 @@ from ..state.store import StateStore
 from ..store.blockstore import BlockStore
 from ..types.genesis import GenesisDoc
 from ..types.validator_set import ValidatorSet
+
+
+def report_wal_repair(wal, logger: logging.Logger | None = None) -> None:
+    """Surface the WAL's open-time crash repair in the recovery log: the
+    exact truncation point (file:byte), how many whole records survived,
+    and where the damaged tail went. Called on the node startup path next
+    to the ABCI handshake so a post-crash boot reads as one coherent
+    recovery story; a clean open logs nothing."""
+    repairs = getattr(wal, "last_repair", None)
+    if not repairs:
+        return
+    logger = logger or logging.getLogger("replay")
+    for rep in repairs:
+        logger.warning(
+            "crash recovery: WAL truncated at %s:%d (%s; %d whole record(s) "
+            "kept, %d damaged byte(s) moved to %s) — replaying to the "
+            "pre-crash state",
+            rep.path, rep.valid_end, rep.reason, rep.n_records,
+            rep.file_size - rep.valid_end, rep.tail_path,
+        )
 
 
 class HandshakeError(RuntimeError):

@@ -22,6 +22,9 @@ the port), so a chain built by one package replays in the other:
   light_block, signed_header     LightBlock, SignedHeader
   hop_proof                      a LightD HopProof (aggregate or per-sig)
   evidence                       DuplicateVote / LightClientAttack evidence
+  vote, proposal                 Vote, Proposal
+  wal_dir                        a consensus WAL directory (a plain copy:
+                                 both packages write the same bytes)
 
 and back: `to_reference(obj, ref_cls)` for any of those types (with the
 reference's class passed in), `evidence_to(ev, decode_evidence)` for
@@ -173,6 +176,35 @@ def evidence(ref_ev):
     return decode_evidence(ref_ev.encode())
 
 
+def vote(ref_vote):
+    """The reference's Vote → the port's."""
+    from .types.vote import Vote
+
+    return Vote.decode(ref_vote.encode())
+
+
+def proposal(ref_proposal):
+    """The reference's Proposal → the port's."""
+    from .types.vote import Proposal
+
+    return Proposal.decode(ref_proposal.encode())
+
+
+def wal_dir(src: str, dst: str) -> str:
+    """Copy the consensus WAL in directory `src` (the reference's node
+    wrote it) to `dst`, file for file: both packages write and read the
+    same WAL bytes, so a port node started on `dst` replays it."""
+    import os
+    import shutil
+
+    os.makedirs(dst, exist_ok=True)
+    for name in sorted(os.listdir(src)):
+        path = os.path.join(src, name)
+        if os.path.isfile(path):
+            shutil.copyfile(path, os.path.join(dst, name))
+    return dst
+
+
 def evidence_to(ev, decode_evidence):
     """Evidence of one package → the other's, through the shared wire
     bytes: `decode_evidence` is the receiving package's decoder (the
@@ -183,7 +215,8 @@ def evidence_to(ev, decode_evidence):
 
 def to_reference(obj, ref_cls):
     """One of the port's wire types (Block, Commit, ValidatorSet, State,
-    LightBlock, SignedHeader, HopProof; GenesisDoc through its JSON) -> the
+    LightBlock, SignedHeader, HopProof, Vote, Proposal; GenesisDoc through
+    its JSON) -> the
     reference's `ref_cls`, decoded from the bytes both packages share."""
     if hasattr(ref_cls, "from_json"):
         return ref_cls.from_json(obj.to_json())

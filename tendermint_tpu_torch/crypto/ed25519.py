@@ -14,6 +14,8 @@ dispatched through crypto/batch.py and runs on the card (crypto/cuda/)."""
 
 from __future__ import annotations
 
+import secrets
+
 try:
     from cryptography.exceptions import InvalidSignature
     from cryptography.hazmat.primitives.asymmetric.ed25519 import (
@@ -78,6 +80,10 @@ class Ed25519PrivKey(PrivKey):
         else:
             self._sk = None
             self._pub = ed25519_math.public_from_seed(self._seed)
+
+    @classmethod
+    def generate(cls) -> "Ed25519PrivKey":
+        return cls(secrets.token_bytes(PRIVKEY_SIZE))
 
     def bytes(self) -> bytes:
         return self._seed

@@ -1,8 +1,6 @@
 """Injectable time sources — the port's copy of
 tendermint_tpu/libs/clock.py (the deterministic-clock analog of the
 reference's tmtime package, plus the chaos side: per-validator skew).
-In the port so far only libs/trace.py reads it; consensus, which the
-rest of this docstring describes, is not ported yet.
 
 Consensus stamps wall-clock time into protocol output — vote timestamps
 (`ConsensusState._vote_time_ns`) and, through the weighted-median rule,

@@ -1,6 +1,7 @@
-"""Metrics — the part of tendermint_tpu/libs/metrics.py that the VerifyHub
-and crypto/batch.py use: the `Histogram` behind the hub's queue-latency
-series, and the process-wide resilience counters.
+"""Metrics — the part of tendermint_tpu/libs/metrics.py that the VerifyHub,
+crypto/batch.py and the consensus WAL use: the `Histogram` behind the
+hub's queue-latency series, the process-wide resilience counters and the
+WAL's storage counters.
 
 The reference's resilience counters record batches re-verified on the
 host after a device error (its breaker and fallback). The port has
@@ -49,3 +50,16 @@ RESILIENCE: dict[str, float] = {
 
 def record_resilience(name: str, value: float = 1.0) -> None:
     RESILIENCE[name] = RESILIENCE.get(name, 0.0) + value
+
+
+# -- process-wide storage events --------------------------------------------
+
+STORAGE: dict[str, float] = {
+    "wal_corrupt_records": 0.0,  # corrupt/torn records hit during replay
+    "wal_repairs": 0.0,  # WAL files truncated to the last whole record
+    "wal_truncated_bytes": 0.0,  # damaged bytes rotated aside by repair
+}
+
+
+def record_storage(name: str, value: float = 1.0) -> None:
+    STORAGE[name] = STORAGE.get(name, 0.0) + value

@@ -3,11 +3,12 @@ votes, light chains, kvstore chains, pairing buckets, the state-sync
 restore and join-wave scenarios, and the seeded tx flood (the subset of
 tendermint_tpu/testing.py the commit, block-sync, light-client,
 state-sync and evidence paths need, the chain builds of bench.py's
-block-sync and state-sync benches, and the envelope txs of its tx-flood
-bench). Keys derive from the same seeds as the reference's, so both
-packages build the same validators and addresses, and the same
-signatures wherever the scheme is deterministic (ed25519, sr25519;
-secp256k1 only on the pure-Python path)."""
+block-sync and state-sync benches, the envelope txs of its tx-flood
+bench, and the vote waves of its consensus-ingest bench). Keys derive
+from the same seeds as the reference's, so both packages build the same
+validators and addresses, and the same signatures wherever the scheme is
+deterministic (ed25519, sr25519; secp256k1 only on the pure-Python
+path)."""
 
 from __future__ import annotations
 
@@ -54,6 +55,99 @@ def make_vote(
         validator_index=index,
         signature=key.sign(sb),
     )
+
+
+#: bench.py's consensus-ingest vote kinds per round (bench.py:1419-1424)
+INGEST_TYPES = (SignedMsgType.PREVOTE, SignedMsgType.PRECOMMIT)
+INGEST_BASE_TS = 1_700_000_000_000_000_000
+
+
+def ingest_cap(n_vals: int) -> int:
+    """Votes per (round, type) that keep every tally of `n_vals` validators
+    of equal power below 2/3 (bench.py:1418): 98 at 150."""
+    return max(1, (2 * n_vals) // 3 - 2)
+
+
+def make_vote_waves(
+    chain_id: str,
+    vals: ValidatorSet,
+    keys: list,
+    height: int,
+    n_waves: int,
+    *,
+    rounds: int = 2,
+    first_wave: int = 0,
+) -> list[list]:
+    """bench.py's consensus-ingest vote waves (bench.py:1449-1468): for
+    each wave, for each round below `rounds` and each vote type, nil votes
+    of the first `ingest_cap` validators by index, signed with their
+    `keys` (any order) at timestamp INGEST_BASE_TS + the wave's number, so
+    every wave has sign-bytes of its own. Both packages sign the same
+    bytes with the same deterministic keys."""
+    from .types.vote import Vote
+
+    cap = ingest_cap(len(vals.validators))
+    idx_key = sorted(
+        ((vals.get_by_address(k.pub_key().address())[0], k) for k in keys),
+        key=lambda ik: ik[0],
+    )
+    waves = []
+    for w in range(first_wave, first_wave + n_waves):
+        votes = []
+        for round_ in range(rounds):
+            for type_ in INGEST_TYPES:
+                for idx, key in idx_key[:cap]:
+                    v = Vote(
+                        type=type_,
+                        height=height,
+                        round=round_,
+                        block_id=NIL_BLOCK_ID,
+                        timestamp_ns=INGEST_BASE_TS + w,
+                        validator_address=key.pub_key().address(),
+                        validator_index=idx,
+                    )
+                    votes.append(
+                        Vote(**{**v.__dict__, "signature": key.sign(v.sign_bytes(chain_id))})
+                    )
+        waves.append(votes)
+    return waves
+
+
+def consensus_channels() -> list:
+    """A consensus reactor's four Channels — state, data, vote, vote-set
+    bits — with the consensus codec, as the reference's node.py opens
+    them (ids, names, priorities)."""
+    from .consensus import messages as m
+    from .consensus.reactor import (
+        DATA_CHANNEL,
+        STATE_CHANNEL,
+        VOTE_CHANNEL,
+        VOTE_SET_BITS_CHANNEL,
+    )
+    from .p2p.router import Channel
+
+    return [
+        Channel(cid, name, prio, m.encode_message, m.decode_message)
+        for cid, name, prio in (
+            (STATE_CHANNEL, "cs-state", 6),
+            (DATA_CHANNEL, "cs-data", 10),
+            (VOTE_CHANNEL, "cs-vote", 7),
+            (VOTE_SET_BITS_CHANNEL, "cs-bits", 1),
+        )
+    ]
+
+
+async def pump_channel(src, dst, from_: str) -> None:
+    """Carry every envelope `src` sends to `dst`'s inbound queue as if it
+    came over the wire from peer `from_`: encoded with the channel's
+    codec and decoded again (an in-process link between two nodes; runs
+    until cancelled)."""
+    from .p2p.types import Envelope
+
+    while True:
+        env = await src.out_q.get()
+        msg = dst.decode(src.encode(env.message))
+        await dst.in_q.put(Envelope(dst.id, msg, from_=from_))
 
 
 def make_duplicate_vote_evidence(

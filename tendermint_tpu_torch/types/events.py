@@ -1,8 +1,9 @@
 """EventBus: typed event publication over pubsub (reference
 types/event_bus.go:35, types/events.go; the port's copy of
-tendermint_tpu/types/events.py, as far as the block executor publishes:
-new block, new block header, tx and validator-set updates). The
-consensus events wait for the consensus port. Composite event keys follow the reference:
+tendermint_tpu/types/events.py).
+
+Consensus and the block executor publish here; the indexer and RPC
+websocket subscribers consume. Composite event keys follow the reference:
 `tm.event` plus per-ABCI-event `type.attr` keys."""
 
 from __future__ import annotations
@@ -15,8 +16,20 @@ from ..libs.pubsub import PubSub, Query, Subscription
 # canonical tm.event values (reference types/events.go)
 EVENT_NEW_BLOCK = "NewBlock"
 EVENT_NEW_BLOCK_HEADER = "NewBlockHeader"
+EVENT_NEW_EVIDENCE = "NewEvidence"
 EVENT_TX = "Tx"
 EVENT_VALIDATOR_SET_UPDATES = "ValidatorSetUpdates"
+EVENT_NEW_ROUND = "NewRound"
+EVENT_NEW_ROUND_STEP = "NewRoundStep"
+EVENT_COMPLETE_PROPOSAL = "CompleteProposal"
+EVENT_VOTE = "Vote"
+EVENT_POLKA = "Polka"
+EVENT_LOCK = "Lock"
+EVENT_UNLOCK = "Unlock"
+EVENT_TIMEOUT_PROPOSE = "TimeoutPropose"
+EVENT_TIMEOUT_WAIT = "TimeoutWait"
+EVENT_BLOCK_SYNC_STATUS = "BlockSyncStatus"
+EVENT_STATE_SYNC_STATUS = "StateSyncStatus"
 
 TYPE_KEY = "tm.event"
 TX_HASH_KEY = "tx.hash"
@@ -52,8 +65,34 @@ class EventDataTx:
 
 
 @dataclass
+class EventDataNewEvidence:
+    height: int
+    evidence: Any
+
+
+@dataclass
+class EventDataVote:
+    vote: Any
+
+
+@dataclass
 class EventDataValidatorSetUpdates:
     validator_updates: list = field(default_factory=list)
+
+
+@dataclass
+class EventDataRoundState:
+    height: int
+    round: int
+    step: str
+
+
+@dataclass
+class EventDataCompleteProposal:
+    height: int
+    round: int
+    step: str
+    block_id: Any = None
 
 
 def abci_events_to_map(abci_events) -> dict[str, list[str]]:
@@ -113,5 +152,35 @@ class EventBus:
         extra.setdefault(TX_HEIGHT_KEY, []).append(str(data.height))
         self._publish(EVENT_TX, data, extra)
 
+    def publish_new_evidence(self, data: EventDataNewEvidence) -> None:
+        self._publish(EVENT_NEW_EVIDENCE, data)
+
+    def publish_vote(self, data: EventDataVote) -> None:
+        self._publish(EVENT_VOTE, data)
+
     def publish_validator_set_updates(self, data: EventDataValidatorSetUpdates) -> None:
         self._publish(EVENT_VALIDATOR_SET_UPDATES, data)
+
+    def publish_new_round(self, data: EventDataRoundState) -> None:
+        self._publish(EVENT_NEW_ROUND, data)
+
+    def publish_new_round_step(self, data: EventDataRoundState) -> None:
+        self._publish(EVENT_NEW_ROUND_STEP, data)
+
+    def publish_complete_proposal(self, data: EventDataCompleteProposal) -> None:
+        self._publish(EVENT_COMPLETE_PROPOSAL, data)
+
+    def publish_polka(self, data: EventDataRoundState) -> None:
+        self._publish(EVENT_POLKA, data)
+
+    def publish_lock(self, data: EventDataRoundState) -> None:
+        self._publish(EVENT_LOCK, data)
+
+    def publish_unlock(self, data: EventDataRoundState) -> None:
+        self._publish(EVENT_UNLOCK, data)
+
+    def publish_timeout_propose(self, data: EventDataRoundState) -> None:
+        self._publish(EVENT_TIMEOUT_PROPOSE, data)
+
+    def publish_timeout_wait(self, data: EventDataRoundState) -> None:
+        self._publish(EVENT_TIMEOUT_WAIT, data)

@@ -1,6 +1,6 @@
 """Vote — a prevote or precommit from a single validator (reference
-types/vote.go; the port's copy of tendermint_tpu/types/vote.py). Proposal
-waits for the consensus port."""
+types/vote.go; the port's copy of tendermint_tpu/types/vote.py), and the
+block Proposal, which shares the canonical sign-bytes machinery."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from dataclasses import dataclass, field
 
 from ..libs import protoenc as pe
 from .block import BlockID, NIL_BLOCK_ID, _decode_timestamp
-from .canonical import encode_timestamp, vote_sign_bytes
+from .canonical import encode_timestamp, proposal_sign_bytes, vote_sign_bytes
 from .keys import SignedMsgType
 
 
@@ -96,5 +96,64 @@ class Vote:
             raise ValueError("bad validator address")
         if self.validator_index < 0:
             raise ValueError("negative validator index")
+        if not self.signature or len(self.signature) > 96:
+            raise ValueError("bad signature")
+
+
+@dataclass(frozen=True)
+class Proposal:
+    """Block proposal for (height, round) (reference types/proposal.go).
+    pol_round is the proof-of-lock round, -1 when unlocked."""
+
+    height: int
+    round: int
+    pol_round: int
+    block_id: BlockID
+    timestamp_ns: int
+    signature: bytes = b""
+
+    def sign_bytes(self, chain_id: str) -> bytes:
+        return proposal_sign_bytes(
+            chain_id, self.height, self.round, self.pol_round, self.block_id, self.timestamp_ns
+        )
+
+    def encode(self) -> bytes:
+        out = pe.sfixed64_field(1, self.height)
+        out += pe.sfixed64_field(2, self.round)
+        out += pe.sfixed64_field(3, self.pol_round if self.pol_round >= 0 else -1)
+        out += pe.message_field(4, self.block_id.encode())
+        out += pe.message_field(5, encode_timestamp(self.timestamp_ns))
+        out += pe.bytes_field(6, self.signature)
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Proposal":
+        r = pe.Reader(data)
+        kw = dict(height=0, round=0, pol_round=-1, block_id=NIL_BLOCK_ID, timestamp_ns=0, signature=b"")
+        while not r.eof():
+            f, wt = r.read_tag()
+            if f == 1:
+                kw["height"] = r.read_sfixed64()
+            elif f == 2:
+                kw["round"] = r.read_sfixed64()
+            elif f == 3:
+                kw["pol_round"] = r.read_sfixed64()
+            elif f == 4:
+                kw["block_id"] = BlockID.decode(r.read_bytes())
+            elif f == 5:
+                kw["timestamp_ns"] = _decode_timestamp(r.read_bytes())
+            elif f == 6:
+                kw["signature"] = r.read_bytes()
+            else:
+                r.skip(wt)
+        return cls(**kw)
+
+    def validate_basic(self) -> None:
+        if self.height < 0 or self.round < 0:
+            raise ValueError("negative height/round")
+        if self.pol_round < -1 or self.pol_round >= self.round:
+            raise ValueError("invalid pol_round")
+        if not self.block_id.is_complete():
+            raise ValueError("proposal must carry a complete block id")
         if not self.signature or len(self.signature) > 96:
             raise ValueError("bad signature")

@@ -7,10 +7,14 @@ unset. Two steer the sharded verifier, read with the knob set and then
 unset in one interpreter: TMTPU_MESH_MAX_DEVICES caps the mesh at
 enumeration (the port's CUDA count stood in by 8, the reference's 8
 virtual devices) and TMTPU_FORCE_SHARDED drops the size gate at each
-call (the port on 8 logical CPU shards). The sidecar's and the tx
-ingress's knobs (TMTPU_VERIFYD_* and TMTPU_INGRESS_*) are read when their
-object is built, each set (over an explicit argument, where there is
-one) and unset, all in one fresh interpreter per package."""
+call (the port on 8 logical CPU shards). The sidecar's, the tx
+ingress's and consensus's knobs (TMTPU_VERIFYD_*, TMTPU_INGRESS_*,
+TMTPU_INGEST_* and TMTPU_COMMIT_SCHEME) are read when their object is
+built or at each commit, each set (over an explicit argument or config
+value, where there is one) and unset, all in one fresh interpreter per
+package. In that interpreter TMTPU_WIREGEN=0, then unset, is read by the
+reference's message codec at (re)import; the port does not read it: its
+only codec is the interpreted one until the generator is ported."""
 
 from __future__ import annotations
 
@@ -128,6 +132,10 @@ BUILD_KNOBS = {
     "TMTPU_INGRESS_LANE_DEPTH": ("6", "ingress().lane_depth"),
     "TMTPU_INGRESS_PARK_MS": ("12.5", "ingress().park_timeout_ns"),
     "TMTPU_INGRESS_CHECKTX_BATCH": ("9", "ingress().checktx_batch"),
+    "TMTPU_INGEST_PIPELINE": ("0", "consensus().ingest is not None"),
+    "TMTPU_INGEST_INFLIGHT": ("17", "consensus().ingest.max_inflight"),
+    "TMTPU_COMMIT_SCHEME": ("bls-aggregate", "aggregated()"),
+    "TMTPU_WIREGEN": ("0", "importlib.reload(cs_msgs).wiregen_active()"),
 }
 
 
@@ -148,6 +156,25 @@ def _build_knob_readings(pkg: str) -> dict:
         "def ingress():\n"
         "    cfg = MempoolConfig()\n"
         "    return TxIngress(cfg.ingress, PriorityMempool(cfg, LocalClient(BaseApplication())))\n"
+        "import asyncio, importlib, tempfile\n"
+        f"from {pkg}.consensus import harness, messages as cs_msgs\n"
+        f"from {pkg}.types.keys import SignedMsgType\n"
+        f"from {pkg}.types.vote_set import VoteSet\n"
+        f"from {pkg}.testing import make_block_id, make_vote\n"
+        "tmp = tempfile.TemporaryDirectory()\n"
+        "bls_genesis, bls_keys = harness.make_genesis(1, key_type='bls12381')\n"
+        "def consensus(genesis=None):\n"
+        "    node = harness.Node(genesis or harness.make_genesis(1)[0], None,\n"
+        "                        wal_dir=tempfile.mkdtemp(dir=tmp.name), **dev)\n"
+        "    asyncio.run(node.start(start_consensus=False))\n"
+        "    return node.cs\n"
+        "def aggregated():\n"
+        "    cs = consensus(bls_genesis)\n"
+        "    vals = cs.rs.validators\n"
+        "    vs = VoteSet(bls_genesis.chain_id, 1, 0, SignedMsgType.PRECOMMIT, vals)\n"
+        "    vs.add_vote(make_vote(bls_genesis.chain_id, bls_keys[0], 0, 1, 0,\n"
+        "                          SignedMsgType.PRECOMMIT, make_block_id()))\n"
+        "    return cs._materialize_commit(vs).is_aggregate()\n"
         "out = {}\n"
         f"for knob, (value, read) in {BUILD_KNOBS!r}.items():\n"
         "    os.environ[knob] = value\n"
@@ -165,7 +192,14 @@ def _build_knob_readings(pkg: str) -> dict:
 def test_port_reads_the_sidecar_and_ingress_knobs_as_the_reference_does():
     ref = _build_knob_readings("tendermint_tpu")
     port = _build_knob_readings("tendermint_tpu_torch")
+    # a difference by design: the port's codec is the interpreted one
+    # whatever TMTPU_WIREGEN says
+    assert ref.pop("TMTPU_WIREGEN") == [False, True]
+    assert port.pop("TMTPU_WIREGEN") == [False, False]
     assert port == ref
+    assert port["TMTPU_INGEST_PIPELINE"] == [False, True]
+    assert port["TMTPU_INGEST_INFLIGHT"] == [17, 64]
+    assert port["TMTPU_COMMIT_SCHEME"] == [True, False]
     assert port["TMTPU_VERIFYD_TIMEOUT"] == [7.5, 60.0]
     assert port["TMTPU_VERIFYD_INFLIGHT"] == [77, 5]
     assert port["TMTPU_VERIFYD_SOCK"] == ["/tmp/x.sock", "/explicit"]

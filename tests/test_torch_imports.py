@@ -667,3 +667,88 @@ def test_sidecar_entry_points_raise_without_cuda_unless_cpu_requested(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn(device="cuda")
     fn(device="cpu")  # the host, when asked for, works
+
+
+CONSENSUS_MODULES = [
+    "tendermint_tpu_torch.consensus.harness",
+    "tendermint_tpu_torch.consensus.ingest",
+    "tendermint_tpu_torch.consensus.messages",
+    "tendermint_tpu_torch.consensus.peer_state",
+    "tendermint_tpu_torch.consensus.reactor",
+    "tendermint_tpu_torch.consensus.state",
+    "tendermint_tpu_torch.consensus.ticker",
+    "tendermint_tpu_torch.consensus.types",
+    "tendermint_tpu_torch.consensus.wal",
+    "tendermint_tpu_torch.libs.chaosfs",
+    "tendermint_tpu_torch.privval",
+    "tendermint_tpu_torch.types.vote_set",
+]
+
+
+def test_scan_and_blocked_import_cover_the_consensus_modules():
+    """The AST scan and the jax-blocked import walk every module of the
+    package; consensus's are among them, with the pieces it reads from
+    modules ported earlier."""
+    assert set(CONSENSUS_MODULES) <= set(_port_modules())
+    from tendermint_tpu_torch import config
+    from tendermint_tpu_torch.consensus.replay import report_wal_repair
+    from tendermint_tpu_torch.libs.metrics import STORAGE
+    from tendermint_tpu_torch.types.events import EventDataRoundState
+    from tendermint_tpu_torch.types.vote import Proposal
+
+    cfg = config.ConsensusConfig()
+    assert (cfg.ingest_pipeline, cfg.ingest_max_inflight, cfg.commit_scheme) == (True, 64, "per-sig")
+    assert callable(report_wal_repair) and "wal_repairs" in STORAGE
+    assert Proposal and EventDataRoundState
+
+
+def _consensus_entry_points(tmp):
+    import os
+
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApp
+    from tendermint_tpu_torch.consensus import harness
+    from tendermint_tpu_torch.consensus.state import ConsensusState
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.state.state import state_from_genesis
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.store.blockstore import BlockStore
+    from tendermint_tpu_torch.store.db import MemDB
+
+    genesis, keys = harness.make_genesis(1)
+
+    def node(**kw):
+        harness.Node(genesis, keys[0], wal_dir=os.path.join(tmp, "node"), **kw)
+
+    def network(**kw):
+        net = harness.LocalNetwork(1, **kw)
+        for n in net.nodes:
+            import shutil
+
+            shutil.rmtree(n.wal_dir, ignore_errors=True)
+
+    def consensus_state(**kw):
+        # the state machine's device is its executor's, built by default
+        executor = BlockExecutor(StateStore(MemDB()), LocalClient(KVStoreApp()), **kw)
+        cs = ConsensusState(harness.fast_config(), state_from_genesis(genesis), executor,
+                            BlockStore(MemDB()))
+        assert cs.device == executor.device
+
+    return {"ConsensusState": consensus_state, "LocalNetwork": network, "Node": node}
+
+
+CONSENSUS_ENTRY_POINTS = ["ConsensusState", "LocalNetwork", "Node"]
+
+
+@pytest.mark.parametrize("name", CONSENSUS_ENTRY_POINTS)
+def test_consensus_entry_points_raise_without_cuda_unless_cpu_requested(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    points = _consensus_entry_points(str(tmp_path))
+    assert sorted(points) == CONSENSUS_ENTRY_POINTS
+    fn = points[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(device="cuda")
+    fn(device="cpu")  # the host, when asked for, works
