@@ -320,6 +320,40 @@ failure exits non-zero, nothing is caught and carried past):
      and blocks 1-3 byte-equal to the same network on the host (a hub on
      the CPU, whose verdict cache answers repeated checks). K7a and K7b
      are held at its pairing shape with phases 17-18's;
+ 25. node-to-node block-sync over TCP with the secret connection (after
+     phase 24): phase 12's 150-validator chain (built once, shared) in a
+     source `node.Node` on the card (the chain's stores and app,
+     block-sync off, one TCPTransport on 127.0.0.1) and a fresh joiner
+     Node (block-sync on) that dials it through its peer manager; both
+     start with VerifyHubConfig(max_batch=16,384) and share one hub. The
+     joiner syncs through its Router in the reactor's default windows of
+     64 blocks (6,464 signatures at light semantics, one hub dispatch
+     each): blocks 1-255 must be byte-equal to the chain and its State
+     the chain's at 255; every range must route as the cutoff says
+     ("cuda" from MIN_TPU_BATCH), at least two on the card, with B1-B3
+     launched, no PeerError and no hub error. Prints blocks/s beside
+     phase 12's hand-fed replay (the difference is the router's and the
+     secret connection's cost), each range, the hub's dispatches by route
+     and the bytes each TCP connection moved (flowrate Meters). Then a
+     byzantine source (a copy of the chain's stores) that serves up to
+     block 101, whose LastCommit carries a flipped signature bit: a second
+     joiner that knows only it must fail that range on the card (the
+     card's bitmap flags exactly that signature), punish height 100 with
+     a fatal PeerError naming it (the Router drops it, the peer manager's
+     score falls below its connect score), apply nothing from height 100
+     on; the byzantine node then stops, the joiner is given the honest
+     source and finishes byte-equal to the chain;
+ 26. a validator network of full Nodes (after phase 25): the frozen-clock
+     recipe on three `node.Node`s over one MemoryNetwork (3 equal-power
+     ed25519 validators, NodeConfig(clock=ManualClock(...)) 500 ms behind
+     genesis), a tx in the first proposer's mempool before its consensus
+     starts, to height 4 on the card (the nodes' hub on the card) and then
+     on the host (device="cpu", no hub): every node must store the same
+     blocks, the tx must be committed in block 1 and queried on every
+     node, and the two runs' block bytes and app-hash chains must be
+     equal. Commits of 3 signatures stay under the cutoff: no Edwards
+     kernel is expected here (phase 25 reaches them); heights/s printed
+     for both runs;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
@@ -328,7 +362,8 @@ failure exits non-zero, nothing is caught and carried past):
      client's windows, the tampered range), the 48-height per-signature
      backfill of phase 18, the sharded paths of phase 19, the daemon's
      packed ranges (phase 20), the wide tx flood (phase 21) and the wide
-     and tampered vote bursts (phase 23) gave B1, B2 and B3 is held
+     and tampered vote bursts (phase 23) and the node block-sync and its
+     byzantine pass (phase 25) gave B1, B2 and B3 is held
      against the plain version with torch.equal, on the inputs the path
      gave and on worst-case inputs of the same shapes; phase 2's sizes
      must be sizes the main path gives; the largest size of each kernel
@@ -341,7 +376,7 @@ count too). Prints the card's name and power limit, `breakdown`,
 `sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `light`, `bls`,
 `statesync`, `sha256`, `light_fleet`, `statesync_fleet`, `sharded`,
 `verifyd`, `tx_ingress`, `evidence`, `consensus_ingest`,
-`consensus_live`, `fleet_pairing_shapes` (K7a/K7b at phases 17-18's and
+`consensus_live`, `node_blocksync`, `node_net`, `fleet_pairing_shapes` (K7a/K7b at phases 17-18's and
 24's shapes), `shapes`, `sharded_rows`, `slice`,
 `kernels` and `script_wall_s`
 JSON lines, and last {"ok": true,
@@ -1471,8 +1506,9 @@ BS_TAMPERED = "blocksync[tampered]"
 def build_chain(n_vals: int, n_blocks: int) -> dict:
     """The source chain of bench.py's block-sync bench, built through the
     port's own executor on the host (device="cpu": set-up, not the
-    measured path). Returns its genesis, block store, the state after
-    height n_blocks - 1 (where a replay ends) and the seconds taken."""
+    measured path). Returns its genesis, validator keys, block and state
+    stores, app connections, the state after height n_blocks - 1 (where a
+    replay ends) and the seconds taken. Phases 12 and 25 share it."""
     import asyncio
 
     from tendermint_tpu_torch import testing as tt
@@ -1486,10 +1522,10 @@ def build_chain(n_vals: int, n_blocks: int) -> dict:
             states["end"] = state
 
     t0 = time.perf_counter()
-    bstore, _sstore, _conns, _state = asyncio.run(
+    bstore, sstore, conns, _state = asyncio.run(
         tt.build_kvstore_chain(genesis, keys, n_blocks, device="cpu", on_height=on_height))
-    return {"genesis": genesis, "store": bstore, "end_state": states["end"],
-            "build_s": time.perf_counter() - t0}
+    return {"genesis": genesis, "keys": keys, "store": bstore, "state_store": sstore,
+            "conns": conns, "end_state": states["end"], "build_s": time.perf_counter() - t0}
 
 
 @contextlib.contextmanager
@@ -1661,10 +1697,11 @@ async def _replay(dev, genesis, serve_block, top: int, *, window: int, on_start=
             "synced": reactor.synced.is_set()}
 
 
-def drive_blocksync(dev, audit: ShapeAudit) -> dict:
+def drive_blocksync(dev, audit: ShapeAudit, chain: dict | None = None) -> dict:
     """Phase 12: bench.py's block-sync bench on the port — replay a
-    prebuilt kvstore chain through BlockSyncReactor on `dev`, one range
-    verification per window; then a short tampered pass."""
+    prebuilt kvstore chain (`chain`, from `build_chain`; built here when
+    None) through BlockSyncReactor on `dev`, one range verification per
+    window; then a short tampered pass."""
     import asyncio
     from dataclasses import replace
 
@@ -1673,8 +1710,8 @@ def drive_blocksync(dev, audit: ShapeAudit) -> dict:
     from tendermint_tpu_torch.crypto.ed25519 import Ed25519PubKey
     from tendermint_tpu_torch.types.block import Block
 
-    chain = build_chain(N_VALS, N_BS_BLOCKS)
-    print(f"blocksync: built the {N_BS_BLOCKS}-block source chain in {chain['build_s']:.1f} s")
+    if chain is None:
+        chain = build_chain(N_VALS, N_BS_BLOCKS)
     src, genesis = chain["store"], chain["genesis"]
     log = RangeLog()
     with log.recording(), audit.recording(BS_MAIN):
@@ -5348,6 +5385,416 @@ def drive_consensus_live(dev, pairing: "PairingAudit") -> dict:
     return out
 
 
+# phase 25: node-to-node block-sync over TCP with the secret connection —
+# phase 12's 150-validator chain served by a source Node, synced by a
+# fresh joiner Node through their Routers in the blocksync reactor's
+# default windows of 64 blocks, every node sharing one hub at
+# NB_HUB_MAX_BATCH (the first acquirer's config wins)
+NB_WINDOW = 64
+NB_HUB_MAX_BATCH = 16384
+NB_TIMEOUT_S = 300.0
+# the byzantine source serves up to NB_TAMPER_HEIGHT + 1, that block's
+# LastCommit (the commit for NB_TAMPER_HEIGHT) with one flipped bit
+NB_TAMPER_HEIGHT, NB_TAMPER_VAL = 100, 5
+NB_MAIN = "node_blocksync[tcp + secret connection, 150 validators]"
+NB_TAMPERED = "node_blocksync[byzantine source]"
+NN_PATH = "node_net[3 validators, memory transport]"
+# phase 26: the frozen-clock recipe on full Nodes over the memory transport
+NN_HEIGHT = 4
+NN_TIMEOUT_S = 120.0
+NN_TX = b"mercury=planet"
+
+
+def _node_key(tag: str):
+    from tendermint_tpu_torch.crypto import ed25519
+
+    return ed25519.Ed25519PrivKey(hashlib.sha256(f"chip-smoke:{tag}".encode()).digest())
+
+
+def _memdb_copy(db):
+    """A second MemDB holding `db`'s entries (the byzantine source's stores:
+    its own, so nothing it does reaches the honest source's)."""
+    from tendermint_tpu_torch.store.db import MemDB
+
+    out = MemDB()
+    out._data = dict(db._data)
+    return out
+
+
+async def _tcp_node(dev, chain, tag: str, *, source: bool, block_db=None, state_db=None):
+    """A Node on `dev` with one TCPTransport listening on 127.0.0.1 (an
+    ephemeral port) and the phase's hub config. A source takes the
+    chain's stores (or `block_db` / `state_db`) and app, with block-sync
+    off; a joiner starts from genesis with block-sync on."""
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApp
+    from tendermint_tpu_torch.config import VerifyHubConfig
+    from tendermint_tpu_torch.node import Node, NodeConfig
+    from tendermint_tpu_torch.p2p.tcp import TCPTransport
+    from tendermint_tpu_torch.proxy import AppConns
+
+    transport = TCPTransport()
+    await transport.listen("127.0.0.1:0")
+    cfg = NodeConfig(block_sync=not source, moniker=tag,
+                     verify_hub=VerifyHubConfig(max_batch=NB_HUB_MAX_BATCH))
+    if source:
+        # a fresh client on the chain's app: the local client's lock binds
+        # to the loop that first uses it
+        node = Node(cfg, chain["genesis"], AppConns.local(chain["conns"].consensus.app),
+                    _node_key(tag), [transport], device=dev,
+                    block_db=block_db or chain["store"].db,
+                    state_db=state_db or chain["state_store"].db)
+    else:
+        node = Node(cfg, chain["genesis"], KVStoreApp(), _node_key(tag), [transport], device=dev)
+    node.tcp = transport
+    return node
+
+
+def _tcp_address(node):
+    from tendermint_tpu_torch.p2p.types import NodeAddress
+
+    host, port = node.tcp.endpoint().rsplit(":", 1)
+    return NodeAddress(node_id=node.node_id, protocol="tcp", host=host, port=int(port))
+
+
+def _peer_bytes(node) -> dict:
+    """Bytes each of `node`'s live connections moved (flowrate Meters)."""
+    return {nid[:12]: {"sent": p.conn.send_meter.total, "received": p.conn.recv_meter.total}
+            for nid, p in node.router._peers.items()}
+
+
+def _record_errors(node) -> list:
+    """Every PeerError the node's peer manager is told of, from now on."""
+    errors: list = []
+    real = node.peer_manager.errored
+
+    def errored(err):
+        errors.append(err)
+        real(err)
+
+    node.peer_manager.errored = errored
+    return errors
+
+
+async def _stop_all(nodes) -> None:
+    """Stop every node (each within 60 s) and remove its WAL directory."""
+    import asyncio
+    import shutil
+
+    for n in nodes:
+        await asyncio.wait_for(n.stop(), 60)
+        if n.consensus is not None:
+            shutil.rmtree(n.consensus.wal.dir, ignore_errors=True)
+
+
+async def _node_sync_run(dev, chain) -> dict:
+    """Phase 25's honest pass: one source, one joiner, over TCP."""
+    import asyncio
+
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+
+    src = await _tcp_node(dev, chain, "source", source=True)
+    joiner = await _tcp_node(dev, chain, "joiner", source=False)
+    try:
+        await src.start()
+        hub = vh.running_hub()
+        errors = _record_errors(joiner)
+        with _hub_dispatches(hub) as dispatches:
+            t0 = time.perf_counter()
+            await joiner.start()
+            joiner.peer_manager.add_address(_tcp_address(src))
+            await asyncio.wait_for(joiner.blocksync_reactor.synced.wait(), NB_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+        moved = _peer_bytes(joiner)
+        hs = hub.stats()
+        return {"joiner": joiner, "source_id": src.node_id, "wall_s": wall, "errors": errors,
+                "bytes": moved, "hub": hs, "hub_max_batch": hub.max_batch,
+                "dispatches": [(d["n"], d["route"]) for d in dispatches]}
+    finally:
+        await _stop_all([joiner, src])
+
+
+async def _node_tampered_run(dev, chain, bad_block) -> dict:
+    """Phase 25's tampered pass: a second joiner first knows only a
+    byzantine source, which serves the chain up to NB_TAMPER_HEIGHT + 1
+    with `bad_block` there; once the joiner has punished it, the
+    byzantine node goes away and the joiner is given the honest source."""
+    import asyncio
+
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+
+    top = NB_TAMPER_HEIGHT + 1
+    byz = await _tcp_node(dev, chain, "byzantine", source=True,
+                          block_db=_memdb_copy(chain["store"].db),
+                          state_db=_memdb_copy(chain["state_store"].db))
+    src = await _tcp_node(dev, chain, "source-2", source=True)
+    joiner = await _tcp_node(dev, chain, "joiner-2", source=False)
+    try:
+        await byz.start()
+        # serve a shorter chain whose top block carries the bad commit
+        # (the reactor answers status and block requests from its store)
+        real_load = byz.block_store.load_block
+        byz.block_store.height = lambda: top
+        byz.block_store.load_block = lambda h: (
+            bad_block if h == top else real_load(h) if h < top else None)
+        await src.start()
+        hub = vh.running_hub()
+        errors = _record_errors(joiner)
+        punished: list = []
+        ups: list = []
+        with _hub_dispatches(hub) as dispatches:
+            await joiner.start()
+            reactor = joiner.blocksync_reactor
+            real_punish = reactor._punish
+            first = asyncio.Event()
+
+            async def punish(height, provider, next_provider, err):
+                punished.append((height, provider))
+                await real_punish(height, provider, next_provider, err)
+                first.set()
+
+            reactor._punish = punish
+            updates = joiner.peer_manager.subscribe()
+            joiner.peer_manager.add_address(_tcp_address(byz))
+            await asyncio.wait_for(first.wait(), NB_TIMEOUT_S)
+            applied_at_punish = joiner.block_store.height()
+            score = joiner.peer_manager.peer_score(byz.node_id)
+            await byz.stop()
+            while not updates.empty():
+                ups.append(updates.get_nowait())
+            t0 = time.perf_counter()
+            joiner.peer_manager.add_address(_tcp_address(src))
+            await asyncio.wait_for(reactor.synced.wait(), NB_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+        return {"joiner": joiner, "byzantine_id": byz.node_id, "source_id": src.node_id,
+                "punished": punished, "errors": errors, "applied_at_punish": applied_at_punish,
+                "byzantine_score": score, "byzantine_connected_at_end":
+                    byz.node_id in joiner.peer_manager.connected_peers(),
+                "byzantine_ups": sum(1 for u in ups if u.node_id == byz.node_id
+                                     and u.status.value == "up"),
+                "finish_wall_s": wall, "hub": hub.stats(),
+                "dispatches": [(d["n"], d["route"], d["false"]) for d in dispatches]}
+    finally:
+        await _stop_all([joiner, src, byz])
+
+
+def _check_synced_chain(joiner, chain, what: str) -> None:
+    """The joiner holds blocks 1..top-1 byte-equal to the chain and the
+    chain's State at top - 1."""
+    src, end = chain["store"], chain["end_state"]
+    top = src.height() - 1
+    if joiner.block_store.height() != top:
+        raise AssertionError(f"{what}: joiner at {joiner.block_store.height()}, want {top}")
+    for h in range(1, top + 1):
+        if joiner.block_store.load_block(h).encode() != src.load_block(h).encode():
+            raise AssertionError(f"{what}: block {h} differs from the chain's")
+    state = joiner.state_store.load()
+    if state.encode() != end.encode():
+        raise AssertionError(f"{what}: the joiner's State differs from the chain's")
+
+
+def drive_node_blocksync(dev, audit: ShapeAudit, chain: dict) -> dict:
+    """Phase 25: a full Node block-syncs phase 12's chain from another
+    over TCP with the secret connection (see the module docstring)."""
+    import asyncio
+    from dataclasses import replace
+
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.types.block import Block
+
+    cutoff = batch.MIN_TPU_BATCH
+    log = RangeLog()
+    with log.recording(), audit.recording(NB_MAIN):
+        _launch_counts(reset=True)
+        run = asyncio.run(_node_sync_run(dev, chain))
+        launches = _launch_counts()
+    _sync(dev)
+    joiner = run["joiner"]
+    _check_synced_chain(joiner, chain, "node block-sync")
+    if run["errors"]:
+        raise AssertionError(f"an honest sync reported {run['errors']}")
+    if run["hub"]["verify_errors"] or run["hub_max_batch"] != NB_HUB_MAX_BATCH:
+        raise AssertionError(f"hub: {run['hub']}")
+    for r in log.ranges:
+        if r["raised"]:
+            raise AssertionError(f"an honest range raised: {r}")
+        want = "cuda" if r["sigs"] >= cutoff else "cpu"
+        if r["route"] != want or any(route != want for _n, route in r["batches"]):
+            raise AssertionError(f"range of {r['sigs']} signatures routed {r['batches']}, "
+                                 f"not {want} (cutoff {cutoff})")
+    if sum(1 for r in log.ranges if r["route"] == "cuda") < 2:
+        raise AssertionError(f"fewer than two windows on the card: {log.ranges}")
+    _require_all_launched("node block-sync", launches)
+    applied = joiner.blocksync_reactor.metrics["blocks_applied"]
+
+    # the tampered pass
+    top = NB_TAMPER_HEIGHT + 1
+    good = chain["store"].load_block(top)
+    lc = good.last_commit
+    sigs = list(lc.signatures)
+    s = sigs[NB_TAMPER_VAL].signature
+    sigs[NB_TAMPER_VAL] = replace(sigs[NB_TAMPER_VAL],
+                                  signature=s[:40] + bytes([s[40] ^ 1]) + s[41:])
+    bad = Block(good.header, good.txs, good.evidence, replace(lc, signatures=tuple(sigs)))
+    tlog = RangeLog()
+    with tlog.recording(), audit.recording(NB_TAMPERED):
+        _launch_counts(reset=True)
+        trun = asyncio.run(_node_tampered_run(dev, chain, bad))
+        tlaunches = _launch_counts()
+    _sync(dev)
+    byz = trun["byzantine_id"]
+    if not trun["punished"] or trun["punished"][0] != (NB_TAMPER_HEIGHT, byz):
+        raise AssertionError(f"tampered pass punished {trun['punished']}")
+    if trun["applied_at_punish"] >= NB_TAMPER_HEIGHT:
+        raise AssertionError(f"applied up to {trun['applied_at_punish']} from the byzantine node")
+    first_err = trun["errors"][0] if trun["errors"] else None
+    if first_err is None or first_err.node_id != byz or not first_err.fatal:
+        raise AssertionError(f"no fatal PeerError named the byzantine node: {trun['errors']}")
+    if trun["byzantine_score"] is None or trun["byzantine_score"] >= 1:
+        raise AssertionError(f"the byzantine node's score is {trun['byzantine_score']}")
+    failing = next(r for r in tlog.ranges if r["first_height"] <= NB_TAMPER_HEIGHT
+                   < r["first_height"] + r["blocks"])
+    if failing["sigs"] < cutoff or failing["route"] != "cuda":
+        raise AssertionError(f"the range with the bad signature did not run on the card: {failing}")
+    flagged = [d for d in trun["dispatches"] if d[2]]
+    if {f for d in flagged for f in d[2]} != {sigs[NB_TAMPER_VAL].signature} \
+            or flagged[0][1] != "cuda":
+        raise AssertionError(f"the card's bitmap flagged {flagged}")
+    _require_all_launched("tampered node block-sync", tlaunches)
+    _check_synced_chain(trun["joiner"], chain, "tampered node block-sync")
+    if trun["hub"]["verify_errors"]:
+        raise AssertionError(f"hub: {trun['hub']}")
+    return {
+        "entry": "node.Node x 2 over TCPTransport (secret connection), device cuda, "
+                 f"hub max_batch {NB_HUB_MAX_BATCH}",
+        "transport": "tcp 127.0.0.1",
+        "validators": N_VALS, "source_blocks": chain["store"].height(), "window": NB_WINDOW,
+        "blocks_applied": applied, "wall_s": run["wall_s"],
+        "blocks_per_s": applied / run["wall_s"],
+        "sigs_verified": sum(r["sigs"] for r in log.ranges),
+        "min_tpu_batch": cutoff,
+        "ranges": [{k: r[k] for k in ("first_height", "blocks", "sigs", "route", "wall_s")}
+                   for r in log.ranges],
+        "range_verify_wall_s": sum(r["wall_s"] for r in log.ranges),
+        "hub_dispatches": _split_by_route(run["dispatches"]),
+        "hub": {k: run["hub"][k] for k in ("dispatches", "dispatched_sigs", "cache_hits",
+                                          "verify_errors", "effective_max_batch")},
+        "bytes_per_connection": run["bytes"],
+        "launches": launches,
+        "tampered": {
+            "tampered_height": NB_TAMPER_HEIGHT, "served_top": top,
+            "punished": [h for h, _p in trun["punished"]],
+            "applied_at_punish": trun["applied_at_punish"],
+            "peer_errors": [[e.node_id[:12], e.err[:60], e.fatal] for e in trun["errors"]],
+            "byzantine_score": trun["byzantine_score"],
+            "byzantine_reconnects_before_stop": max(0, trun["byzantine_ups"] - 1),
+            "ranges": [{k: r[k] for k in ("first_height", "blocks", "sigs", "route", "raised")}
+                       for r in tlog.ranges],
+            "flagged_dispatch": [flagged[0][0], flagged[0][1]],
+            "finish_from_honest_s": trun["finish_wall_s"],
+            "launches": tlaunches,
+        },
+    }
+
+
+async def _node_net_run(dev, *, hub: bool) -> dict:
+    """Phase 26's network: the frozen-clock recipe's 3 equal-power
+    validators as full Nodes over one MemoryNetwork on `dev`, to height
+    NN_HEIGHT, NN_TX in the first proposer's mempool before its consensus
+    starts (so block 1 carries it on every run). Returns every node's
+    blocks, the app-hash chain, the tx's query on each node and the wall."""
+    import asyncio
+
+    from tendermint_tpu_torch.abci import types as abci
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApp
+    from tendermint_tpu_torch.config import VerifyHubConfig
+    from tendermint_tpu_torch.consensus import harness
+    from tendermint_tpu_torch.libs.clock import ManualClock
+    from tendermint_tpu_torch.node import Node, NodeConfig
+    from tendermint_tpu_torch.p2p.memory import MemoryNetwork
+    from tendermint_tpu_torch.p2p.types import NodeAddress, node_id_from_pubkey
+    from tendermint_tpu_torch.privval import MockPV
+
+    genesis, keys = harness.make_genesis(CL_VALS)
+    clock = ManualClock(harness.GENESIS_TIME_NS - 500 * 1_000_000)
+    memory = MemoryNetwork()
+    proposer = genesis.validator_set().get_proposer().address
+    nodes, apps = [], []
+    for i, k in enumerate(keys):
+        nk = _node_key(f"validator-{i}")
+        app = KVStoreApp()
+        node = Node(NodeConfig(consensus=_frozen_config(), clock=clock, moniker=f"v{i}",
+                               verify_hub=VerifyHubConfig(enabled=hub)),
+                    genesis, app, nk, [memory.create_transport(node_id_from_pubkey(nk.pub_key()))],
+                    priv_validator=MockPV(k), device=dev)
+        if k.pub_key().address() == proposer:
+            real_start = node._start_consensus
+
+            async def start_consensus(node=node, real_start=real_start):
+                await node.mempool.check_tx(NN_TX)
+                await real_start()
+
+            node._start_consensus = start_consensus
+        nodes.append(node)
+        apps.append(app)
+    try:
+        for n in nodes:
+            await n.start()
+        t0 = time.perf_counter()
+        for i, a in enumerate(nodes):
+            for b in nodes[i + 1:]:
+                a.peer_manager.add_address(NodeAddress(node_id=b.node_id, protocol="memory"))
+        await asyncio.gather(*(n.wait_for_height(NN_HEIGHT, NN_TIMEOUT_S) for n in nodes))
+        wall = time.perf_counter() - t0
+        blocks = [[n.block_store.load_block(h).encode() for h in range(1, NN_HEIGHT + 1)]
+                  for n in nodes]
+        app_hashes = [n.block_store.load_block(h).header.app_hash.hex()
+                      for n in nodes[:1] for h in range(1, NN_HEIGHT + 1)]
+        values = [a.query(abci.RequestQuery(data=NN_TX.split(b"=")[0])).value for a in apps]
+        return {"blocks": blocks, "app_hashes": app_hashes, "values": values, "wall_s": wall,
+                "ingest_hub_errors": sum(n.consensus.ingest.stats["hub_errors"]
+                                         for n in nodes if n.consensus.ingest is not None)}
+    finally:
+        await _stop_all(nodes)
+
+
+def drive_node_net(dev) -> dict:
+    """Phase 26: a validator network of full Nodes over the memory
+    transport, on the card and then on the host; the two chains must be
+    byte-equal."""
+    import asyncio
+
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+
+    _launch_counts(reset=True)
+    card = asyncio.run(_node_net_run(dev, hub=True))
+    launches = _launch_counts()
+    if vh.running_hub() is not None:
+        raise AssertionError("the hub outlived the network's last node")
+    host = asyncio.run(_node_net_run("cpu", hub=False))
+    for run, where in ((card, "card"), (host, "host")):
+        if any(b != run["blocks"][0] for b in run["blocks"]):
+            raise AssertionError(f"{where}: the nodes stored different blocks")
+        if run["values"] != [NN_TX.split(b"=")[1]] * CL_VALS:
+            raise AssertionError(f"{where}: the tx was not committed everywhere: {run['values']}")
+        if run["ingest_hub_errors"]:
+            raise AssertionError(f"{where}: ingest hub errors {run['ingest_hub_errors']}")
+    if card["blocks"][0] != host["blocks"][0] or card["app_hashes"] != host["app_hashes"]:
+        raise AssertionError("the card's chain differs from the host's")
+    from tendermint_tpu_torch.types.block import Block
+
+    if NN_TX not in Block.decode(card["blocks"][0][0]).txs:
+        raise AssertionError("block 1 does not carry the tx")
+    return {
+        "entry": "node.Node x 3 over MemoryNetwork (frozen clock), device cuda, then cpu",
+        "validators": CL_VALS, "height": NN_HEIGHT,
+        "wall_s": card["wall_s"], "heights_per_s": NN_HEIGHT / card["wall_s"],
+        "host_wall_s": host["wall_s"], "host_heights_per_s": NN_HEIGHT / host["wall_s"],
+        "blocks_equal_to_host": True, "app_hashes": card["app_hashes"],
+        "block_bytes": [len(b) for b in card["blocks"][0]],
+        "tx_in_block": 1, "launches": launches,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -5413,8 +5860,10 @@ def main() -> int:
     print(json.dumps({"cutoff": cutoff}))
     hub = drive_hub(dev, entries, run["slice"])
     print(json.dumps({"hub": hub}))
+    chain = build_chain(N_VALS, N_BS_BLOCKS)
+    print(f"blocksync: built the {N_BS_BLOCKS}-block source chain in {chain['build_s']:.1f} s")
     t0 = time.perf_counter()
-    bs = drive_blocksync(dev, audit)
+    bs = drive_blocksync(dev, audit, chain)
     bs["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"blocksync": bs}))
     t0 = time.perf_counter()
@@ -5468,6 +5917,16 @@ def main() -> int:
     cl = drive_consensus_live(dev, fleet_pairing)
     cl["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"consensus_live": cl}))
+    t0 = time.perf_counter()
+    nb = drive_node_blocksync(dev, audit, chain)
+    nb["phase12_blocks_per_s"] = bs["blocks_per_s"]
+    nb["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"node_blocksync": nb}))
+    del chain
+    t0 = time.perf_counter()
+    nn = drive_node_net(dev)
+    nn["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"node_net": nn}))
     # K7a and K7b at every shape phases 17-18 and 24 gave them, path and
     # worst-case inputs
     t0 = time.perf_counter()
@@ -5514,6 +5973,9 @@ def main() -> int:
         CI_TAMPERED: ci["tampered"]["launches"],
         CL_ED: cl["ed25519"]["launches"],
         CL_BLS: cl["bls_aggregate"]["launches"],
+        NB_MAIN: nb["launches"],
+        NB_TAMPERED: nb["tampered"]["launches"],
+        NN_PATH: nn["launches"],
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]
@@ -5541,7 +6003,8 @@ def main() -> int:
         paths = {p for rec in held.get(name, []) for p in rec["calls"]}
         if not {ED_MAIN, ED_TAMPERED, SR_MAIN, SR_TAMPERED, BS_MAIN, LC_MAIN,
                 LC_TAMPERED, SSF_DEEP, *(_sh_path("kernel_eq", n) for n in SH_SHARDS),
-                VD_PACKED, VD_TAMPERED, TX_CARD, CI_MAIN, CI_TAMPERED} <= paths:
+                VD_PACKED, VD_TAMPERED, TX_CARD, CI_MAIN, CI_TAMPERED,
+                NB_MAIN, NB_TAMPERED} <= paths:
             raise AssertionError(f"{name}: shapes recorded on {sorted(paths)} only")
     print(json.dumps({"shapes": held}))
     for row in rows:

@@ -1,7 +1,9 @@
 """Node configuration — the port's copy of the sections of
 tendermint_tpu/config.py that it reads so far: `ConsensusConfig`,
 `MempoolIngressConfig`, `MempoolConfig`, `EvidenceConfig`,
-`VerifyHubConfig`, `LightDConfig` and `BootDConfig`.
+`VerifyHubConfig`, `LightDConfig`, `BootDConfig` and `TraceConfig`.
+The rest (P2P, RPC, chaos, state sync, the TOML loader) waits for the
+cli port.
 """
 
 from __future__ import annotations
@@ -123,15 +125,20 @@ class EvidenceConfig:
 @dataclass
 class VerifyHubConfig:
     """VerifyHub — the node-wide micro-batching signature-verification
-    scheduler (crypto/verify_hub.py): the defaults of its constructor.
-    The reference's TMTPU_VERIFYHUB_* env overrides wait for the node
-    config that reads them; its `enabled` and `mesh_scale` wait for the
-    node, which is not ported (the hub always scales its capacity by the
-    mesh size)."""
+    scheduler (crypto/verify_hub.py): the defaults of its constructor,
+    and the node's `[verify_hub]` section. `enabled=False` (or
+    TMTPU_VERIFYHUB_DISABLE=1, which the node reads) starts a node without
+    the hub. The reference's TMTPU_VERIFYHUB_* and TMTPU_MESH_SCALE env
+    overrides wait for the cli port that reads the rest of the config."""
 
+    enabled: bool = True
     max_batch: int = 512  # per-device dispatch target (sigs queued)
     window_ms: float = 2.0  # micro-batch window ceiling (adaptive below it)
     cache_size: int = 8192  # verified-(pubkey,msg,sig) LRU entries
+    # scale batch capacity + adaptive window by the device-mesh size, so
+    # a mesh of n devices is fed n× batches; False pins one device's
+    # max_batch
+    mesh_scale: bool = True
     # verification sidecar (crypto/verifyd.py): path of a running verifyd
     # daemon's Unix socket. When set, the hub ships its packed cold
     # micro-batches there instead of dispatching locally — N node
@@ -185,3 +192,16 @@ class BootDConfig:
     snapshot_interval: int = 1
     #: backfilled commits verified per funnel call (the backfill window)
     backfill_batch: int = 64
+
+
+@dataclass
+class TraceConfig:
+    """Flight-recorder tracing (libs/trace.py): structured spans in a
+    bounded per-process ring buffer, dumped automatically on a loop
+    wedge. Env mirrors win over the section: TMTPU_TRACE=0 disables,
+    TMTPU_TRACE_RING sizes the ring, TMTPU_TRACE_DIR points auto-dumps
+    at a directory."""
+
+    enabled: bool = True
+    ring_size: int = 4096  # spans kept; oldest dropped when full
+    dump_dir: str = ""  # where auto-dumps land; empty = in-memory only

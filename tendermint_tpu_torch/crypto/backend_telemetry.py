@@ -18,9 +18,9 @@ What the counters mean on the card:
 
 Not ported: the reference's breaker transitions, TPU→CPU fallback
 records and degrade events — the port has no breaker and no fallback —
-and its mesh stores (the metrics exporter that renders them is not
-ported yet). Each attach also lands in the flight recorder as a
-``backend.attach`` span.
+and its attach-latency list, compile times and mesh stores.
+`libs.metrics.NodeMetrics` renders what is kept here. Each attach also
+lands in the flight recorder as a ``backend.attach`` span.
 """
 
 from __future__ import annotations

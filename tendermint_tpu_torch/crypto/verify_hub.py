@@ -55,9 +55,9 @@ Differences from the reference, by design:
   * `verify_aggregate` runs the pairing check on the caller's device
     (the hub lends only its verdict cache), as the reference runs it on
     the caller's thread;
-  * the batch capacity always scales by the mesh size: the reference's
-    `mesh_scale` knob (TMTPU_MESH_SCALE, `[verify_hub]`) waits for the
-    node config that reads it;
+  * `mesh_scale` comes from the constructor or `VerifyHubConfig`, as
+    in the reference; its TMTPU_MESH_SCALE env override waits for the
+    cli port, with the TMTPU_VERIFYHUB_* ones;
   * the remote route's fall-back is the hub's own device route: a batch
     the sidecar does not answer verifies on the hub's device (the card
     at or above the cutoff), never silently on the host; every
@@ -74,13 +74,15 @@ has ``allow_remote=False``; it tags each client's signatures with a
 tenant id, and `cross_tenant_dispatches` counts dispatches that packed
 more than one client.
 
-Mesh awareness: `max_batch` is a per-device target. Each dispatch
-iteration reads how many devices a dispatch from the hub's device shards
-over (crypto/batch `mesh_parallelism`, from crypto/cuda/mesh.py) and
-scales the pack capacity and the adaptive window's ramp by it, so a mesh
-of four is fed batches of 4 × max_batch. Sharded dispatches stamp each
-shard's device and real signatures onto their hub.dispatch spans. A hub
-on the CPU never reads CUDA.
+Mesh awareness: `max_batch` is a per-device target. With `mesh_scale`
+on (the default), each dispatch iteration reads how many devices a
+dispatch from the hub's device shards over (crypto/batch
+`mesh_parallelism`, from crypto/cuda/mesh.py) and scales the pack
+capacity and the adaptive window's ramp by it, so a mesh of four is fed
+batches of 4 × max_batch; with it off, the capacity is `max_batch`
+whatever the mesh. Sharded dispatches stamp each shard's device and real
+signatures onto their hub.dispatch spans. A hub on the CPU never reads
+CUDA.
 """
 
 
@@ -186,6 +188,7 @@ class VerifyHub:
         window_ms: float | None = None,
         cache_size: int | None = None,
         adaptive: bool = True,
+        mesh_scale: bool | None = None,
         verifyd_sock: str | None = None,
         allow_remote: bool = True,
         name: str = "verify-hub",
@@ -200,6 +203,8 @@ class VerifyHub:
             window_ms = defaults.window_ms
         if cache_size is None:
             cache_size = defaults.cache_size
+        if mesh_scale is None:
+            mesh_scale = defaults.mesh_scale
         # the sidecar route: TMTPU_VERIFYD_SOCK wins over the argument, as
         # in the reference; a daemon's own hub must never route back into
         # itself (allow_remote=False, not env-overridable)
@@ -216,10 +221,10 @@ class VerifyHub:
         self.window_s = max(0.0, window_ms) / 1e3
         self.cache_size = max(0, cache_size)
         self.adaptive = adaptive
-        #: the mesh size, refreshed once per dispatch iteration: batch
-        #: capacity and window scale by it, since a mesh fed one device's
-        #: batches runs each shard at 1/n occupancy
-        self._mesh_n = 1
+        #: scale batch capacity + window by the mesh size: a mesh fed one
+        #: device's batches runs each shard at 1/n occupancy
+        self.mesh_scale = bool(mesh_scale)
+        self._mesh_n = 1  # refreshed once per dispatch iteration
 
         self._cv = threading.Condition()
         # two FIFO lanes; dispatch packs live first, then backfill
@@ -517,10 +522,14 @@ class VerifyHub:
     # -- scheduling internals --------------------------------------------
 
     def _refresh_mesh(self) -> int:
-        """The mesh size, read once per dispatch iteration."""
-        from .batch import mesh_parallelism
+        """The mesh size, read once per dispatch iteration (1 with
+        `mesh_scale` off)."""
+        if self.mesh_scale:
+            from .batch import mesh_parallelism
 
-        self._mesh_n = mesh_parallelism(self.device)
+            self._mesh_n = mesh_parallelism(self.device)
+        else:
+            self._mesh_n = 1
         return self._mesh_n
 
     def _effective_max(self) -> int:

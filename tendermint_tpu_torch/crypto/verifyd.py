@@ -318,8 +318,8 @@ _daemons: "weakref.WeakSet[VerifyDaemon]" = weakref.WeakSet()
 
 
 def aggregate_daemons():
-    """Fold every running in-process daemon's counters (for the metrics
-    exporter, which is not ported yet). Returns None when no daemon runs
+    """Fold every running in-process daemon's counters (for
+    `libs.metrics.NodeMetrics`). Returns None when no daemon runs
     in this process (the usual node shape: the daemon is a separate OS
     process and its stats travel over the protocol instead)."""
     ds = [d for d in _daemons if d.is_running]

@@ -15,9 +15,11 @@ the loop being stuck) that schedules a trivial heartbeat callback via
 `threshold_s`, it writes every thread's Python stack and every asyncio
 task's stack to `<dir>/wedged-<ts>.txt` and logs loudly. One report per
 wedge (re-armed once the loop breathes again) — a wedged loop that
-recovers produces exactly one bundle, not a spray. The port's trace
-module has no `auto_dump`, so the flight recorder's spans (the other half
-of the diagnosis: what ran up to the stall) go into the same report.
+recovers produces exactly one bundle, not a spray. The flight recorder's
+spans (the other half of the diagnosis: what ran up to the stall) go into
+the same report, and a wedge also dumps the recorder as the reference's
+does (`libs/trace.auto_dump`, to ``TMTPU_TRACE_DIR`` or the node's
+``[trace]`` dump dir).
 
 The reference's `BackendInitWatchdog` is not ported: it bounds the JAX
 backend's attach, and the port has no background probe to bound.
@@ -92,6 +94,12 @@ class LoopWatchdog:
             if not responded and not wedged:
                 wedged = True
                 self._report()
+                try:
+                    from . import trace
+
+                    trace.auto_dump("loop-wedged")
+                except Exception as e:  # noqa: BLE001 — diagnostics only
+                    logger.debug("flight dump on wedge failed: %r", e)
             elif responded:
                 wedged = False
             self._stop.wait(self.interval_s)

@@ -87,8 +87,8 @@ SYNC_BUCKETS = (
     0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
 
-#: process-wide registry of live LightDs, summed by `aggregate()` (the
-#: reference's NodeMetrics folds it at render time; not ported yet)
+#: process-wide registry of live LightDs, summed by `aggregate()`
+#: (`libs.metrics.NodeMetrics` folds it at render time)
 _lightds: "weakref.WeakSet[LightD]" = weakref.WeakSet()
 
 

@@ -58,7 +58,7 @@ recorder).
 Config: `config.MempoolIngressConfig`; the env mirrors
 TMTPU_INGRESS_DEPTH / _WORKERS / _LANE_DEPTH / _PARK_MS /
 _CHECKTX_BATCH win over it, read as the reference reads them
-(TMTPU_INGRESS_DISABLE is the node's, which is not ported yet).
+(TMTPU_INGRESS_DISABLE is the node's, read in `Node.on_start`).
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ ADMIT_BUCKETS = (
 MAX_LANES = 8192
 
 #: process-wide registry of live ingresses; `aggregate()` sums their
-#: stats (the metrics exporter that renders them is not ported yet)
+#: stats (`libs.metrics.NodeMetrics` folds them at render time)
 _ingresses: "weakref.WeakSet[TxIngress]" = weakref.WeakSet()
 
 

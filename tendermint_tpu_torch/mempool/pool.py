@@ -30,7 +30,7 @@ from ..libs import trace
 from . import Mempool
 
 #: process-wide registry of live pools; `aggregate_pools` sums their
-#: stats (the metrics exporter that renders them is not ported yet)
+#: stats (`libs.metrics.NodeMetrics` folds them at render time)
 _pools: "weakref.WeakSet[PriorityMempool]" = weakref.WeakSet()
 
 

@@ -1,9 +1,29 @@
-"""The pieces of the p2p stack that the block-sync reactor touches (the
-port's copy of parts of tendermint_tpu/p2p/): `Envelope` and `PeerError`
-(types.py), `PeerStatus`/`PeerUpdate` (peermanager.py) and the
-reactor-facing `Channel` (router.py). The Router, the transports and the
-peer manager wait for the p2p port."""
+"""P2P stack — the distributed communication backend (reference
+internal/p2p/; the port's copy of tendermint_tpu/p2p/).
 
-from .types import Envelope, NodeID, PeerError
+Reactors hold `Channel` handles; a `Router` (router.py) moves `Envelope`s
+between per-peer connections and per-reactor channels; a `Transport`
+abstracts the wire: in-memory (memory.py) for in-process nets, TCP or a
+Unix socket with the secret connection (tcp.py, secret.py) between
+processes. The peer manager (peermanager.py) owns dialing, scores and
+bans; PEX (pex.py) and the address book (addrbook.py) spread and keep
+addresses. The wire bytes are the reference's, so port and reference
+nodes interoperate."""
 
-__all__ = ["Envelope", "NodeID", "PeerError"]
+from .types import (
+    Envelope,
+    NodeAddress,
+    NodeID,
+    NodeInfo,
+    PeerError,
+    node_id_from_pubkey,
+)
+
+__all__ = [
+    "Envelope",
+    "NodeAddress",
+    "NodeID",
+    "NodeInfo",
+    "PeerError",
+    "node_id_from_pubkey",
+]

@@ -35,8 +35,8 @@ BootD closes both gaps:
 
 BootD takes its knobs from `config.BootDConfig` alone: the reference's
 TMTPU_BOOTD_* env overrides are not read. `aggregate()` sums the live
-BootDs' stats; the NodeMetrics renderer that folds them into /metrics
-waits for the node's metrics port. ``boot.*`` trace spans go to the
+BootDs' stats, which `libs.metrics.NodeMetrics` folds into /metrics at
+render time. ``boot.*`` trace spans go to the
 flight recorder (serve_chunk / backfill_verify / sync).
 """
 

@@ -14,7 +14,11 @@ built or at each commit, each set (over an explicit argument or config
 value, where there is one) and unset, all in one fresh interpreter per
 package. In that interpreter TMTPU_WIREGEN=0, then unset, is read by the
 reference's message codec at (re)import; the port does not read it: its
-only codec is the interpreted one until the generator is ported."""
+only codec is the interpreted one until the generator is ported. The
+full node's knobs (TMTPU_VERIFYHUB_DISABLE, TMTPU_INGRESS_DISABLE,
+TMTPU_CATCHUP_RATE, read when a Node starts, and TMTPU_TRACE_DIR, read
+when the flight recorder is configured) are each set and unset around a
+one-validator Node's start, in one fresh interpreter per package."""
 
 from __future__ import annotations
 
@@ -205,3 +209,66 @@ def test_port_reads_the_sidecar_and_ingress_knobs_as_the_reference_does():
     assert port["TMTPU_VERIFYD_SOCK"] == ["/tmp/x.sock", "/explicit"]
     assert port["TMTPU_INGRESS_PARK_MS"] == [12_500_000, 3_000_000_000]
     assert port["TMTPU_INGRESS_DEPTH"] == [33, 2048]
+
+
+#: the full node's knobs: the value set, and what a started Node (`node`)
+#: or the flight recorder (`trace`) reads
+NODE_KNOBS = {
+    "TMTPU_VERIFYHUB_DISABLE": ("1", "node.verify_hub is None"),
+    "TMTPU_INGRESS_DISABLE": ("true", "node.ingress is None"),
+    "TMTPU_CATCHUP_RATE": ("250", "node.cs_reactor.catchup_rate"),
+    "TMTPU_TRACE_DIR": ("/tmp/flight", "trace.configure(out_dir='/cfg').out_dir"),
+}
+
+
+def _node_knob_readings(pkg: str) -> dict:
+    dev = "{'device': 'cpu'}" if pkg == "tendermint_tpu_torch" else "{}"
+    env = {k: v for k, v in os.environ.items() if k not in NODE_KNOBS}
+    env.update(JAX_PLATFORMS="cpu", TMTPU_DISABLE_TPU="1")
+    code = (
+        "import asyncio, json, os, shutil\n"
+        + ("import jax\njax.config.update('jax_platforms', 'cpu')\n" if pkg == "tendermint_tpu" else "")
+        + f"from {pkg}.abci.kvstore import KVStoreApp\n"
+        f"from {pkg}.consensus import harness\n"
+        f"from {pkg}.crypto import ed25519\n"
+        f"from {pkg}.libs import trace\n"
+        f"from {pkg}.node import Node, NodeConfig\n"
+        f"from {pkg}.p2p.memory import MemoryNetwork\n"
+        f"dev = {dev}\n"
+        "genesis, _ = harness.make_genesis(1)\n"
+        "def started(read):\n"
+        "    async def go():\n"
+        "        node = Node(NodeConfig(block_sync=False), genesis, KVStoreApp(),\n"
+        "                    ed25519.Ed25519PrivKey(bytes(32)),\n"
+        "                    [MemoryNetwork().create_transport('n')], **dev)\n"
+        "        await node.start()\n"
+        "        try:\n"
+        "            return eval(read)\n"
+        "        finally:\n"
+        "            await node.stop()\n"
+        "            shutil.rmtree(node.consensus.wal.dir, ignore_errors=True)\n"
+        "    return asyncio.run(go())\n"
+        "out = {}\n"
+        f"for knob, (value, read) in {NODE_KNOBS!r}.items():\n"
+        "    got = []\n"
+        "    for v in (value, None):\n"
+        "        os.environ.pop(knob, None) if v is None else os.environ.update({knob: v})\n"
+        "        got.append(eval(read) if read.startswith('trace') else started(read))\n"
+        "    out[knob] = got\n"
+        "print(json.dumps(out))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+def test_port_node_reads_its_knobs_as_the_reference_does():
+    port = _node_knob_readings("tendermint_tpu_torch")
+    assert port == _node_knob_readings("tendermint_tpu")
+    assert port == {
+        "TMTPU_VERIFYHUB_DISABLE": [True, False],
+        "TMTPU_INGRESS_DISABLE": [True, False],
+        "TMTPU_CATCHUP_RATE": [250.0, None],
+        "TMTPU_TRACE_DIR": ["/tmp/flight", "/cfg"],
+    }

@@ -752,3 +752,75 @@ def test_consensus_entry_points_raise_without_cuda_unless_cpu_requested(name, tm
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn(device="cuda")
     fn(device="cpu")  # the host, when asked for, works
+
+
+NODE_MODULES = [
+    "tendermint_tpu_torch.crypto.softcrypto",
+    "tendermint_tpu_torch.crypto.xchacha20poly1305",
+    "tendermint_tpu_torch.libs.flowrate",
+    "tendermint_tpu_torch.libs.metrics",
+    "tendermint_tpu_torch.libs.trace",
+    "tendermint_tpu_torch.node",
+    "tendermint_tpu_torch.p2p.addrbook",
+    "tendermint_tpu_torch.p2p.memory",
+    "tendermint_tpu_torch.p2p.peermanager",
+    "tendermint_tpu_torch.p2p.pex",
+    "tendermint_tpu_torch.p2p.router",
+    "tendermint_tpu_torch.p2p.secret",
+    "tendermint_tpu_torch.p2p.tcp",
+    "tendermint_tpu_torch.p2p.testing",
+    "tendermint_tpu_torch.p2p.transport",
+    "tendermint_tpu_torch.p2p.types",
+    "tendermint_tpu_torch.state.indexer",
+]
+
+
+def test_scan_and_blocked_import_cover_the_node_modules():
+    """The AST scan and the jax-blocked import walk every module of the
+    package; the p2p stack's and the full node's are among them, with the
+    pieces they read from modules ported earlier."""
+    assert set(NODE_MODULES) <= set(_port_modules())
+    from tendermint_tpu_torch import config
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.libs.metrics import NodeMetrics, observe_block
+
+    cfg = config.VerifyHubConfig()
+    assert (cfg.enabled, cfg.mesh_scale) == (True, True)
+    assert config.TraceConfig().ring_size == trace.DEFAULT_RING
+    assert callable(trace.configure_once) and callable(trace.auto_dump)
+    assert NodeMetrics and callable(observe_block)
+
+
+def _node_entry_points():
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApp
+    from tendermint_tpu_torch.consensus import harness
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.node import Node, NodeConfig
+    from tendermint_tpu_torch.p2p.memory import MemoryNetwork
+    from tendermint_tpu_torch.p2p.testing import RouterShell, TestNetwork
+
+    genesis, _ = harness.make_genesis(1)
+    return {
+        "Node": lambda **kw: Node(NodeConfig(), genesis, KVStoreApp(),
+                                  ed25519.Ed25519PrivKey(bytes(32)),
+                                  [MemoryNetwork().create_transport("n")], **kw),
+        "RouterShell": lambda **kw: RouterShell(MemoryNetwork(), 0, "c", **kw),
+        "TestNetwork": lambda **kw: TestNetwork(2, **kw),
+    }
+
+
+NODE_ENTRY_POINTS = ["Node", "RouterShell", "TestNetwork"]
+
+
+@pytest.mark.parametrize("name", NODE_ENTRY_POINTS)
+def test_node_entry_points_raise_without_cuda_unless_cpu_requested(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    points = _node_entry_points()
+    assert sorted(points) == NODE_ENTRY_POINTS
+    fn = points[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(device="cuda")
+    assert fn(device="cpu").device == torch.device("cpu")  # the host, when asked for

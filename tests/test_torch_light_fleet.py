@@ -453,8 +453,9 @@ def test_watchdog_ports_the_loop_watchdog_only():
 
 
 def test_watchdog_report_lists_the_flight_recorder(tmp_path):
-    """The port has no `trace.auto_dump`: the ring's spans go into the
-    wedge report itself, one JSON object a line."""
+    """The ring's spans go into the wedge report itself, one JSON object a
+    line (a wedge also calls `trace.auto_dump`, from the watchdog's
+    thread, as the reference's does)."""
     from tendermint_tpu_torch.libs import trace
     from tendermint_tpu_torch.libs.watchdog import LoopWatchdog
 

@@ -1,9 +1,9 @@
 """The mesh half of the sharded verifier on the CPU: the VerifyHub's
 capacity and window scaled by the mesh size, its stats and dispatch
 spans, and the device registry (crypto/cuda/mesh.py) — the counterparts
-of tests/test_mesh_hub.py's hub and registry cases. The port reads no
-TMTPU_MESH_SCALE env, has no breaker, probe or degrade, and a hub on the
-CPU never reads CUDA."""
+of tests/test_mesh_hub.py's hub and registry cases, with the reference's
+`mesh_scale` knob. The port reads no TMTPU_MESH_SCALE env, has no
+breaker, probe or degrade, and a hub on the CPU never reads CUDA."""
 
 import logging
 import secrets
@@ -62,20 +62,36 @@ def test_hub_scales_capacity_by_mesh(monkeypatch):
 
 
 def test_hub_mesh_scale_knob(monkeypatch):
-    """The port has no mesh_scale knob yet: the hub always scales by the
-    mesh, TMTPU_MESH_SCALE=0 is not read, and neither the constructor nor
-    VerifyHubConfig takes the knob."""
+    """`mesh_scale` (constructor and VerifyHubConfig) as the reference's
+    hub has it: on, the capacity is max_batch per device of the mesh; off,
+    it is max_batch whatever the mesh. The port reads no TMTPU_MESH_SCALE
+    env (the reference's override waits for the cli port): with it set to
+    0, the port's default still scales, the reference's does not."""
     import dataclasses
 
+    from tendermint_tpu import config as j_config
+    from tendermint_tpu.crypto import batch as j_batch
+    from tendermint_tpu.crypto import verify_hub as j_vh
     from tendermint_tpu_torch.config import VerifyHubConfig
 
     monkeypatch.setattr(B, "mesh_parallelism", lambda device: 8)
+    monkeypatch.setattr(j_batch, "mesh_parallelism", lambda: 8)
+    for knob in (True, False, None):
+        hub = VerifyHub(device="cpu", max_batch=16, mesh_scale=knob)
+        ref = j_vh.VerifyHub(max_batch=16, mesh_scale=knob)
+        assert hub.mesh_scale == ref.mesh_scale == (knob is not False)
+        assert hub._refresh_mesh() == ref._refresh_mesh() == (1 if knob is False else 8)
+        assert hub._effective_max() == ref._effective_max() == (16 if knob is False else 128)
+    fields = {f.name: f.default for f in dataclasses.fields(VerifyHubConfig)}
+    ref_fields = {f.name: f.default for f in dataclasses.fields(j_config.VerifyHubConfig)}
+    assert fields == ref_fields
+    assert (fields["enabled"], fields["mesh_scale"]) == (True, True)
+
     monkeypatch.setenv("TMTPU_MESH_SCALE", "0")
     hub = VerifyHub(device="cpu", max_batch=16)
     assert hub._refresh_mesh() == 8 and hub._effective_max() == 128
-    assert "mesh_scale" not in {f.name for f in dataclasses.fields(VerifyHubConfig)}
-    with pytest.raises(TypeError):
-        VerifyHub(device="cpu", max_batch=16, mesh_scale=False)
+    ref = j_vh.VerifyHub(max_batch=16)
+    assert ref.mesh_scale is False and ref._refresh_mesh() == 1
 
 
 def test_hub_stats_carry_mesh_fields(monkeypatch):
