@@ -328,8 +328,9 @@ failure exits non-zero, nothing is caught and carried past):
      start with VerifyHubConfig(max_batch=16,384) and share one hub. The
      joiner syncs through its Router in the reactor's default windows of
      64 blocks (6,464 signatures at light semantics, one hub dispatch
-     each): blocks 1-255 must be byte-equal to the chain and its State
-     the chain's at 255; every range must route as the cutoff says
+     each), the source serving the chain's first 192 blocks (cut from
+     256 for phase 27): blocks 1-191 must be byte-equal to the chain and its
+     State the chain's at 191; every range must route as the cutoff says
      ("cuda" from MIN_TPU_BATCH), at least two on the card, with B1-B3
      launched, no PeerError and no hub error. Prints blocks/s beside
      phase 12's hand-fed replay (the difference is the router's and the
@@ -337,7 +338,9 @@ failure exits non-zero, nothing is caught and carried past):
      and the bytes each TCP connection moved (flowrate Meters). Then a
      byzantine source (a copy of the chain's stores) that serves up to
      block 101, whose LastCommit carries a flipped signature bit: a second
-     joiner that knows only it must fail that range on the card (the
+     joiner that knows only it (its first range waits until its pool
+     holds those 101 blocks, so the range holding height 100 is blocks
+     65-100 in every run) must fail that range on the card (the
      card's bitmap flags exactly that signature), punish height 100 with
      a fatal PeerError naming it (the Router drops it, the peer manager's
      score falls below its connect score), apply nothing from height 100
@@ -354,6 +357,27 @@ failure exits non-zero, nothing is caught and carried past):
      equal. Commits of 3 signatures stay under the cutoff: no Edwards
      kernel is expected here (phase 25 reaches them); heights/s printed
      for both runs;
+ 27. the scenario harness on the card (after phase 26; consensus/
+     scenarios.py over RouterNet: N consensus nodes, each behind its own
+     p2p Router over a chaos-wrapped memory transport with a real
+     ConsensusReactor, the nodes sharing one hub on the card): (a) every
+     scenario of the registry (17: network, storage, clock and Byzantine
+     faults) at 4 validators with bench.py's chaos_soak parameters (target
+     height 3, seed 7, stall 25 s), each `ok` with a green safety audit;
+     per scenario its blocks/s, recover_s, fault counters, the hub's
+     dispatches by route and the launches; (b) the determinism
+     construction of tests/test_routernet.py:315 (3 validators, frozen
+     clock, corruption, clock skew and a one-way cut on the byte path) on
+     the card and on the host: blocks 1-3 and the app-hash chain
+     byte-equal; (c) 4 bls12381 validators with aggregate commits over
+     RouterNet under lossy_links' fault rates to height 3: blocks 2-3
+     carry aggregate LastCommits, every aggregate check launches K7a and
+     K7b, whose shapes join phases 17-18's and 24's in the pairing audit;
+     (d) run_boot_wave(n_vals=4, n_joiners=2) and run_light_attack(
+     n_vals=3), both `ok`, the lunatic fork detected and its evidence
+     committed; (e) baseline at 50 validators with bench.py's committee
+     parameters (target 2, time_scale 4, stall 90 s, degree 8, seed 7).
+     A device error raises out of the runner: no wedge hides one;
  11. the shape audit: every input shape that the ed25519 and sr25519
      ranges (phases 3 and 7), their tampered twins (phases 4 and 7: the
      per-commit search and the attribution through kernel_sig), the
@@ -376,8 +400,9 @@ count too). Prints the card's name and power limit, `breakdown`,
 `sr25519`, `mixed`, `cutoff`, `hub`, `blocksync`, `light`, `bls`,
 `statesync`, `sha256`, `light_fleet`, `statesync_fleet`, `sharded`,
 `verifyd`, `tx_ingress`, `evidence`, `consensus_ingest`,
-`consensus_live`, `node_blocksync`, `node_net`, `fleet_pairing_shapes` (K7a/K7b at phases 17-18's and
-24's shapes), `shapes`, `sharded_rows`, `slice`,
+`consensus_live`, `node_blocksync`, `node_net`, `scenarios`,
+`fleet_pairing_shapes` (K7a/K7b at phases 17-18's, 24's and 27's
+shapes), `shapes`, `sharded_rows`, `slice`,
 `kernels` and `script_wall_s`
 JSON lines, and last {"ok": true,
 "device": {...}}. Imports nothing of JAX or of the JAX
@@ -1508,7 +1533,9 @@ def build_chain(n_vals: int, n_blocks: int) -> dict:
     port's own executor on the host (device="cpu": set-up, not the
     measured path). Returns its genesis, validator keys, block and state
     stores, app connections, the state after height n_blocks - 1 (where a
-    replay ends) and the seconds taken. Phases 12 and 25 share it."""
+    replay ends), the state after NB_BLOCKS - 1 (where phase 25's sync of
+    the chain's first NB_BLOCKS blocks ends) and the seconds taken. Phases
+    12 and 25 share it."""
     import asyncio
 
     from tendermint_tpu_torch import testing as tt
@@ -1520,12 +1547,15 @@ def build_chain(n_vals: int, n_blocks: int) -> dict:
     def on_height(h, _block, _parts, _commit, state):
         if h == n_blocks - 1:
             states["end"] = state
+        if h == min(NB_BLOCKS, n_blocks) - 1:
+            states["nb"] = state
 
     t0 = time.perf_counter()
     bstore, sstore, conns, _state = asyncio.run(
         tt.build_kvstore_chain(genesis, keys, n_blocks, device="cpu", on_height=on_height))
     return {"genesis": genesis, "keys": keys, "store": bstore, "state_store": sstore,
-            "conns": conns, "end_state": states["end"], "build_s": time.perf_counter() - t0}
+            "conns": conns, "end_state": states["end"], "nb_state": states["nb"],
+            "build_s": time.perf_counter() - t0}
 
 
 @contextlib.contextmanager
@@ -5391,6 +5421,9 @@ def drive_consensus_live(dev, pairing: "PairingAudit") -> dict:
 # default windows of 64 blocks, every node sharing one hub at
 # NB_HUB_MAX_BATCH (the first acquirer's config wins)
 NB_WINDOW = 64
+#: phase 25 syncs the first NB_BLOCKS blocks of phase 12's chain (cut from
+#: all 256 to make room for phase 27)
+NB_BLOCKS = 192
 NB_HUB_MAX_BATCH = 16384
 NB_TIMEOUT_S = 300.0
 # the byzantine source serves up to NB_TAMPER_HEIGHT + 1, that block's
@@ -5449,6 +5482,16 @@ async def _tcp_node(dev, chain, tag: str, *, source: bool, block_db=None, state_
     return node
 
 
+def _serve_prefix(node, top: int, top_block=None) -> None:
+    """Make a source node serve its chain up to block `top` only (the
+    reactor answers status and block requests from its store), with
+    `top_block` in place of the stored block `top` when given."""
+    real_load = node.block_store.load_block
+    node.block_store.height = lambda: top
+    node.block_store.load_block = lambda h: (
+        (top_block or real_load(h)) if h == top else real_load(h) if h < top else None)
+
+
 def _tcp_address(node):
     from tendermint_tpu_torch.p2p.types import NodeAddress
 
@@ -5496,6 +5539,7 @@ async def _node_sync_run(dev, chain) -> dict:
     joiner = await _tcp_node(dev, chain, "joiner", source=False)
     try:
         await src.start()
+        _serve_prefix(src, NB_BLOCKS)
         hub = vh.running_hub()
         errors = _record_errors(joiner)
         with _hub_dispatches(hub) as dispatches:
@@ -5531,12 +5575,9 @@ async def _node_tampered_run(dev, chain, bad_block) -> dict:
     try:
         await byz.start()
         # serve a shorter chain whose top block carries the bad commit
-        # (the reactor answers status and block requests from its store)
-        real_load = byz.block_store.load_block
-        byz.block_store.height = lambda: top
-        byz.block_store.load_block = lambda h: (
-            bad_block if h == top else real_load(h) if h < top else None)
+        _serve_prefix(byz, top, bad_block)
         await src.start()
+        _serve_prefix(src, NB_BLOCKS)
         hub = vh.running_hub()
         errors = _record_errors(joiner)
         punished: list = []
@@ -5553,6 +5594,24 @@ async def _node_tampered_run(dev, chain, bad_block) -> dict:
                 first.set()
 
             reactor._punish = punish
+            # the first range waits until the pool holds every block the
+            # byzantine node serves, so that the range holding height
+            # NB_TAMPER_HEIGHT is the one after a whole window in every run
+            # (the reactor verifies whatever run the pool holds: without
+            # this wait that range was as short as 5 blocks, below the
+            # cutoff, in one run on the card)
+            real_verify = reactor._verify_and_apply
+            gate = asyncio.Event()
+
+            async def verify_and_apply(run):
+                if not gate.is_set():
+                    while len(reactor.pool.peek_range(top + 1)) < top:
+                        await asyncio.sleep(0.01)
+                    gate.set()
+                    run = reactor.pool.peek_range(reactor.window + 1)
+                await real_verify(run)
+
+            reactor._verify_and_apply = verify_and_apply
             updates = joiner.peer_manager.subscribe()
             joiner.peer_manager.add_address(_tcp_address(byz))
             await asyncio.wait_for(first.wait(), NB_TIMEOUT_S)
@@ -5578,10 +5637,10 @@ async def _node_tampered_run(dev, chain, bad_block) -> dict:
 
 
 def _check_synced_chain(joiner, chain, what: str) -> None:
-    """The joiner holds blocks 1..top-1 byte-equal to the chain and the
-    chain's State at top - 1."""
-    src, end = chain["store"], chain["end_state"]
-    top = src.height() - 1
+    """The joiner holds blocks 1..NB_BLOCKS-1 byte-equal to the chain and
+    the chain's State at NB_BLOCKS - 1."""
+    src, end = chain["store"], chain["nb_state"]
+    top = NB_BLOCKS - 1
     if joiner.block_store.height() != top:
         raise AssertionError(f"{what}: joiner at {joiner.block_store.height()}, want {top}")
     for h in range(1, top + 1):
@@ -5667,7 +5726,7 @@ def drive_node_blocksync(dev, audit: ShapeAudit, chain: dict) -> dict:
         "entry": "node.Node x 2 over TCPTransport (secret connection), device cuda, "
                  f"hub max_batch {NB_HUB_MAX_BATCH}",
         "transport": "tcp 127.0.0.1",
-        "validators": N_VALS, "source_blocks": chain["store"].height(), "window": NB_WINDOW,
+        "validators": N_VALS, "source_blocks": NB_BLOCKS, "window": NB_WINDOW,
         "blocks_applied": applied, "wall_s": run["wall_s"],
         "blocks_per_s": applied / run["wall_s"],
         "sigs_verified": sum(r["sigs"] for r in log.ranges),
@@ -5793,6 +5852,254 @@ def drive_node_net(dev) -> dict:
         "block_bytes": [len(b) for b in card["blocks"][0]],
         "tx_in_block": 1, "launches": launches,
     }
+
+
+# -- phase 27 -----------------------------------------------------------------
+
+# phase 27: the scenario harness (consensus/scenarios.py, RouterNet,
+# libs/chaos.py) on the card. bench.py's chaos_soak rows (bench.py:598-640):
+# every scenario of the registry at 4 validators, and baseline at 50
+SC_SOAK = dict(n_vals=4, target_height=3, seed=7, timeout_s=75.0, stall_s=25.0,
+               time_scale=1.0, degree=8)
+SC_WIDE = dict(n_vals=50, target_height=2, seed=7, timeout_s=300.0, stall_s=90.0,
+               time_scale=4.0, degree=8)
+SC_BLS_HEIGHT = 3
+SC_TIMEOUT_S = 240.0
+SC_SWEEP = "scenarios[registry, 4 validators]"
+SC_DET = "scenarios[determinism construction, card]"
+SC_BLS = "scenarios[bls12381 RouterNet, lossy links]"
+SC_BOOT = "scenarios[run_boot_wave, 4 validators + 2 joiners]"
+SC_LIGHT = "scenarios[run_light_attack, 3 validators]"
+SC_WIDE_PATH = "scenarios[baseline, 50 validators]"
+
+
+def _nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+async def _with_hub(dev, coro_fn):
+    """Run `coro_fn()` inside a hub on `dev` acquired first (the net's own
+    acquire then shares it, refcounted), logging every hub dispatch with
+    its route. Returns (result, dispatch log, hub stats)."""
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+
+    hub = vh.acquire_hub(device=dev)
+    try:
+        with _hub_dispatches(hub) as log:
+            out = await coro_fn()
+        return out, log, hub.stats()
+    finally:
+        vh.release_hub()
+
+
+def _scenario_row(res, log, hs, launches) -> dict:
+    d = res.as_dict()
+    if d["outcome"] != "ok" or not (d["audit"] or {}).get("ok"):
+        raise AssertionError(f"scenario {d['scenario']}: {json.dumps(d, default=str)[:4000]}")
+    if hs["verify_errors"]:
+        raise AssertionError(f"scenario {d['scenario']}: hub errors {hs}")
+    fs = {}
+    for per_node in d["fs_faults"].values():
+        for k, v in per_node.items():
+            fs[k] = fs.get(k, 0) + v
+    return {
+        "scenario": d["scenario"], "n_vals": d["n_vals"], "outcome": d["outcome"],
+        "heights": d["heights"], "elapsed_s": d["elapsed_s"],
+        "blocks_per_s": d["blocks_per_s"], "recover_s": d["recover_s"],
+        "events": d["events_applied"], "faults": _nonzero(d["faults"]),
+        "fs_faults": _nonzero(fs), "audit_ok": True,
+        "evidence_lag_heights": d["audit"]["evidence_lag_heights"],
+        "byz": {str(b["index"]): b["counts"] for b in d["byz_actions"]},
+        "routes": _split_by_route([(x["n"], x["route"]) for x in log]),
+        "hub_cache_hits": hs["cache_hits"], "launches": _nonzero(launches),
+    }
+
+
+async def _determinism_run(dev) -> dict:
+    """tests/test_routernet.py:315's construction on `dev`: 3 equal-power
+    validators on a frozen clock behind genesis, generous timeouts,
+    corruption + clock skew on the byte path, node0 -> node1 cut."""
+    from tendermint_tpu_torch.config import ConsensusConfig
+    from tendermint_tpu_torch.consensus import harness
+    from tendermint_tpu_torch.consensus.routernet import RouterNet
+    from tendermint_tpu_torch.libs.chaos import ChaosConfig, ChaosNetwork
+    from tendermint_tpu_torch.libs.clock import ManualClock
+
+    ms = 1_000_000
+    cfg = ConsensusConfig(
+        timeout_propose_ns=3000 * ms, timeout_propose_delta_ns=500 * ms,
+        timeout_prevote_ns=2000 * ms, timeout_prevote_delta_ns=500 * ms,
+        timeout_precommit_ns=2000 * ms, timeout_precommit_delta_ns=500 * ms,
+        timeout_commit_ns=80 * ms, skip_timeout_commit=True)
+    chaos = ChaosNetwork(ChaosConfig(seed=424, corrupt_rate=0.015, delay_ms=2.0,
+                                     clock_skew_ms=80.0))
+    net = RouterNet(3, config=cfg, chaos=chaos,
+                    base_clock=ManualClock(harness.GENESIS_TIME_NS - 500 * ms),
+                    stall_refresh_s=0.3, device=dev)
+    chaos.partition_oneway({net.nodes[0].node_id}, {net.nodes[1].node_id})
+    await net.start()
+    try:
+        t0 = time.perf_counter()
+        await net.wait_for_height(3, 90)
+        wall = time.perf_counter() - t0
+        if not net.hashes_agree(3):
+            raise AssertionError("determinism run: the nodes disagree")
+        return {"blocks": net.block_fingerprints(3), "app_hashes": net.app_hash_chain(3),
+                "wall_s": wall, "faults": _nonzero(dict(chaos.faults))}
+    finally:
+        await net.stop()
+
+
+async def _bls_committee(dev) -> dict:
+    """4 bls12381 validators with aggregate commits over RouterNet, under
+    lossy_links' fault rates, to SC_BLS_HEIGHT."""
+    from dataclasses import replace
+
+    from tendermint_tpu_torch.consensus import scenarios as sc
+    from tendermint_tpu_torch.consensus.routernet import RouterNet
+    from tendermint_tpu_torch.libs.chaos import ChaosNetwork
+    from tendermint_tpu_torch.types.block import Block
+
+    chaos = ChaosNetwork(replace(sc.SCENARIOS["lossy_links"].chaos, seed=SC_SOAK["seed"]))
+    cfg = _frozen_config("bls-aggregate")
+    net = RouterNet(4, config=cfg, chaos=chaos, key_type="bls12381", device=dev)
+    await net.start()
+    try:
+        t0 = time.perf_counter()
+        await net.wait_for_height(SC_BLS_HEIGHT, SC_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        aggregate = [h for h, b in enumerate(net.block_fingerprints(SC_BLS_HEIGHT), 1)
+                     if h > 1 and Block.decode(b).last_commit.is_aggregate()]
+        if aggregate != list(range(2, SC_BLS_HEIGHT + 1)) or not net.hashes_agree(SC_BLS_HEIGHT):
+            raise AssertionError(f"bls committee: aggregate LastCommits at {aggregate}")
+        return {"wall_s": wall, "heights": net.heights(), "faults": _nonzero(dict(chaos.faults)),
+                "aggregate_last_commits": aggregate}
+    finally:
+        await net.stop()
+
+
+def drive_scenarios(dev, pairing: "PairingAudit") -> dict:
+    """Phase 27: the scenario harness on the card (see the module
+    docstring)."""
+    import asyncio
+
+    from tendermint_tpu_torch.consensus import scenarios as sc
+    from tendermint_tpu_torch.crypto import batch as B
+    from tendermint_tpu_torch.crypto import verify_hub as vh
+    from tendermint_tpu_torch.crypto.cuda import bls_pairing as BP
+
+    out: dict = {"soak_parameters": SC_SOAK}
+    t_phase = time.perf_counter()
+
+    # (a) the whole registry at 4 validators
+    rows, sweep_launches = [], {}
+    t0 = time.perf_counter()
+    for name in sc.SCENARIOS:
+        _launch_counts(reset=True)
+        res, log, hs = asyncio.run(_with_hub(
+            dev, lambda name=name: sc.run_scenario(name, device=dev, **SC_SOAK)))
+        launches = _launch_counts()
+        for k, v in launches.items():
+            sweep_launches[k] = sweep_launches.get(k, 0) + v
+        rows.append(_scenario_row(res, log, hs, launches))
+    out["registry"] = {"rows": rows, "wall_s": time.perf_counter() - t0,
+                       "launches": sweep_launches}
+    if vh.running_hub() is not None:
+        raise AssertionError("the hub outlived the sweep")
+
+    # (b) card against host, under the determinism construction
+    _launch_counts(reset=True)
+    card = asyncio.run(_determinism_run(dev))
+    det_launches = _launch_counts()
+    host = asyncio.run(_determinism_run("cpu"))
+    if card["blocks"] != host["blocks"] or card["app_hashes"] != host["app_hashes"]:
+        raise AssertionError("determinism run: the card's chain differs from the host's")
+    if not {"corrupt", "asym_drop", "clock_skew"} <= set(card["faults"]):
+        raise AssertionError(f"determinism run: faults {card['faults']}")
+    out["determinism"] = {
+        "validators": 3, "height": 3, "wall_s": card["wall_s"], "host_wall_s": host["wall_s"],
+        "card_to_host_wall": card["wall_s"] / host["wall_s"],
+        "blocks_and_app_hashes_equal_to_host": True,
+        "block_bytes": [len(b) for b in card["blocks"]], "faults": card["faults"],
+        "host_faults": host["faults"], "launches": _nonzero(det_launches),
+    }
+
+    # (c) a BLS committee: K7a and K7b on every aggregate check
+    checks: list = []
+    real_agg = B.bls_aggregate_verify
+
+    def agg_verify(pub_keys, msgs, agg_sig, device=None):
+        before = _launch_counts()
+        t = time.perf_counter()
+        ok = real_agg(pub_keys, msgs, agg_sig, device)
+        _sync(dev)
+        after = _launch_counts()
+        checks.append({"signers": len(pub_keys), "ok": ok, "wall_s": time.perf_counter() - t,
+                       "k7a": after[BP.MILLER.name] - before[BP.MILLER.name],
+                       "k7b": after[BP.FINAL_EXP.name] - before[BP.FINAL_EXP.name]})
+        return ok
+
+    _launch_counts(reset=True)
+    B.bls_aggregate_verify = agg_verify
+    try:
+        with pairing.recording(SC_BLS):
+            bls, bls_log, bls_hs = asyncio.run(_with_hub(dev, lambda: _bls_committee(dev)))
+        _sync(dev)
+    finally:
+        B.bls_aggregate_verify = real_agg
+    bls_launches = _launch_counts()
+    _require_all_launched(SC_BLS, bls_launches, (BP.MILLER.name, BP.FINAL_EXP.name))
+    if not checks or not all(c["ok"] and c["k7a"] >= 1 and c["k7b"] >= 1 for c in checks):
+        raise AssertionError(f"bls committee: aggregate checks {checks}")
+    if bls_hs["verify_errors"]:
+        raise AssertionError(f"bls committee: hub {bls_hs}")
+    bls.update(launches=_nonzero(bls_launches), aggregate_checks=checks,
+               routes=_split_by_route([(x["n"], x["route"]) for x in bls_log]),
+               hub_cache_hits=bls_hs["cache_hits"], pairing_shapes=pairing.shapes(SC_BLS))
+    out["bls_committee"] = bls
+
+    # (d) the two lifecycles
+    _launch_counts(reset=True)
+    boot, boot_log, boot_hs = asyncio.run(_with_hub(
+        dev, lambda: sc.run_boot_wave(n_vals=4, n_joiners=2, device=dev)))
+    boot_launches = _launch_counts()
+    if boot["outcome"] != "ok" or boot["joined"] != 2 or not boot["honest_chain_ok"]:
+        raise AssertionError(f"boot wave: {json.dumps(boot, default=str)[:4000]}")
+    _launch_counts(reset=True)
+    light, light_log, light_hs = asyncio.run(_with_hub(
+        dev, lambda: sc.run_light_attack(n_vals=3, device=dev)))
+    light_launches = _launch_counts()
+    if (light["outcome"] != "ok" or not light["divergence_detected"]
+            or light["lca_committed_at"] is None):
+        raise AssertionError(f"light attack: {json.dumps(light, default=str)[:4000]}")
+    out["boot_wave"] = {k: boot[k] for k in (
+        "joined", "time_to_synced_s", "joiner_heights", "chunks_served", "cache_hits",
+        "backfill_sigs", "elapsed_s", "heights")}
+    out["boot_wave"].update(launches=_nonzero(boot_launches),
+                            routes=_split_by_route([(x["n"], x["route"]) for x in boot_log]))
+    out["light_attack"] = {k: light[k] for k in (
+        "attack_height", "divergence_detected", "served_forged", "lca_committed_at",
+        "time_to_lca_commit_heights", "elapsed_s", "heights")}
+    out["light_attack"].update(launches=_nonzero(light_launches),
+                               routes=_split_by_route([(x["n"], x["route"]) for x in light_log]))
+
+    # (e) one row at full width: baseline at 50 validators
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    res, log, hs = asyncio.run(_with_hub(
+        dev, lambda: sc.run_scenario("baseline", device=dev, **SC_WIDE)))
+    wide_launches = _launch_counts()
+    out["wide"] = _scenario_row(res, log, hs, wide_launches)
+    out["wide"]["parameters"] = SC_WIDE
+    out["wide"]["wall_s"] = time.perf_counter() - t0
+    if vh.running_hub() is not None:
+        raise AssertionError("the hub outlived phase 27")
+    out["launches"] = {
+        SC_SWEEP: sweep_launches, SC_DET: det_launches, SC_BLS: bls_launches,
+        SC_BOOT: boot_launches, SC_LIGHT: light_launches, SC_WIDE_PATH: wide_launches,
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def main() -> int:
@@ -5927,8 +6234,12 @@ def main() -> int:
     nn = drive_node_net(dev)
     nn["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"node_net": nn}))
-    # K7a and K7b at every shape phases 17-18 and 24 gave them, path and
-    # worst-case inputs
+    t0 = time.perf_counter()
+    scn = drive_scenarios(dev, fleet_pairing)
+    scn["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"scenarios": scn}))
+    # K7a and K7b at every shape phases 17-18, 24 and 27 gave them, path
+    # and worst-case inputs
     t0 = time.perf_counter()
     fleet_held = _hold_pairing_shapes(dev, fleet_pairing)
 
@@ -5976,6 +6287,7 @@ def main() -> int:
         NB_MAIN: nb["launches"],
         NB_TAMPERED: nb["tampered"]["launches"],
         NN_PATH: nn["launches"],
+        **scn["launches"],
     }
     run["slice"]["launches_by_path"] = by_path
     run["slice"]["min_tpu_batch"] = cutoff["min_tpu_batch"]

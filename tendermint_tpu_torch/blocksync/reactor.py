@@ -16,13 +16,16 @@ individual re-verification with the true set. Every verification runs
 on `device` ("cuda" by default, resolved at construction: it raises
 without a card unless "cpu" is asked for); the range calls run in a
 worker thread (`asyncio.to_thread`), whose kernel launches go to that
-thread's current stream."""
+thread's current stream. A device error (`crypto.batch.DeviceError`) in
+apply is not the provider's fault: it raises out of the reactor's task
+instead of becoming a `PeerError` and a redo."""
 
 from __future__ import annotations
 
 import asyncio
 import logging
 
+from ..crypto.batch import DeviceError
 from ..device import DEFAULT_DEVICE, resolve
 from ..libs.clock import SYSTEM, Clock
 from ..libs.service import Service
@@ -94,6 +97,8 @@ class BlockSyncReactor(Service):
         self._commit_verified_from = None  # no proof interval yet
         self._commit_verified_upto = 0
         self._commit_verified_vals = b""
+        #: the DeviceError that ended the sync routine, if one did
+        self.device_error: DeviceError | None = None
 
     async def on_start(self) -> None:
         self.spawn(self._process_peer_updates(), name="bsr.peers")
@@ -205,7 +210,11 @@ class BlockSyncReactor(Service):
                     return
                 await asyncio.sleep(SWITCH_CHECK_INTERVAL)
                 continue
-            await self._verify_and_apply(run)
+            try:
+                await self._verify_and_apply(run)
+            except DeviceError as e:
+                self.device_error = e  # Node.wait_for_height re-raises it
+                raise
 
     async def _verify_and_apply(self, run) -> None:
         """Verify blocks run[0..-2] using each successor's LastCommit in
@@ -395,6 +404,8 @@ class BlockSyncReactor(Service):
                 commit_verified=self._commit_preverified(height),
             )
             self.metrics["blocks_applied"] += 1
+        except DeviceError:
+            raise  # the card failed, not the provider: no PeerError
         except Exception as e:
             self.logger.error("apply failed at height %d: %r", height, e)
             await self.channel.error(PeerError(provider, f"apply: {e!r}"))

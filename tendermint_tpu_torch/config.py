@@ -1,9 +1,9 @@
 """Node configuration — the port's copy of the sections of
 tendermint_tpu/config.py that it reads so far: `ConsensusConfig`,
 `MempoolIngressConfig`, `MempoolConfig`, `EvidenceConfig`,
-`VerifyHubConfig`, `LightDConfig`, `BootDConfig` and `TraceConfig`.
-The rest (P2P, RPC, chaos, state sync, the TOML loader) waits for the
-cli port.
+`ChaosNetConfig`, `ChaosFSConfig`, `VerifyHubConfig`, `LightDConfig`,
+`BootDConfig` and `TraceConfig`. The rest (P2P, RPC, state sync, the TOML
+loader) waits for the cli port.
 """
 
 from __future__ import annotations
@@ -120,6 +120,44 @@ class EvidenceConfig:
     pool sizing."""
 
     max_pending: int = 1000
+
+
+@dataclass
+class ChaosNetConfig:
+    """Chaos-net fault injection (libs/chaos.py). Off by default; when
+    `enabled`, every transport the node constructs is wrapped in the
+    seeded fault-injection layer. The same knobs are reachable without a
+    config file through TMTPU_CHAOS_* env vars (libs/chaos.py docstring);
+    a fixed seed makes a fault schedule reproducible."""
+
+    enabled: bool = False
+    seed: int = 0
+    drop_rate: float = 0.0  # per-message drop probability
+    delay_ms: float = 0.0  # p50 extra latency (exponential tail)
+    duplicate_rate: float = 0.0
+    reorder_rate: float = 0.0
+    corrupt_rate: float = 0.0
+    bandwidth_rate: float = 0.0  # per-link cap, bytes/sec (queue buildup)
+    gray_delay_ms: float = 0.0  # gray failure: fixed slow-but-alive delay
+    clock_skew_ms: float = 0.0  # max |per-validator clock skew|
+    clock_drift: float = 0.0  # max |rate error| (timeouts fire early/late)
+
+
+@dataclass
+class ChaosFSConfig:
+    """Chaos-fs storage fault injection (libs/chaosfs.py). Off by
+    default; when `enabled`, the node's WAL rides the seeded
+    fault-injecting FS and the block/state DBs are wrapped in `ChaosDB`.
+    Env mirror: TMTPU_CHAOS_FS_* (libs/chaosfs.py docstring)."""
+
+    enabled: bool = False
+    seed: int = 0
+    torn_write_rate: float = 0.0  # P(crash leaves a partial, mid-record tail)
+    torn_offset: int = -1  # fixed tear offset into the un-fsynced tail
+    lost_fsync_rate: float = 0.0  # P(fsync acked but not durable)
+    enospc_rate: float = 0.0  # P(write fails ENOSPC mid-record)
+    enospc_at_byte: int = -1  # arm ENOSPC at an exact cumulative byte
+    bitrot_rate: float = 0.0  # P(read returns one flipped byte)
 
 
 @dataclass

@@ -9,13 +9,12 @@ reactor replaces the hook wiring in production.
 and raise without a card; "cpu" runs every block's LastCommit check (and
 the evidence pool's and the handshake's) on the host. Vote and proposal
 signatures go through the running VerifyHub when one is acquired, and
-through the host otherwise, as in the reference. The reference's chaos
-network (`LocalNetwork(chaos=)`) waits for the port of libs/chaos.py:
-passing one raises."""
+through the host otherwise, as in the reference."""
 
 from __future__ import annotations
 
 import asyncio
+import logging
 import tempfile
 
 from ..abci.kvstore import KVStoreApp
@@ -40,9 +39,18 @@ from ..types.genesis import GenesisDoc, GenesisValidator
 
 MS = 1_000_000
 
-# every harness genesis is stamped here; a reproducible run parks a frozen
+# every harness genesis is stamped here; chaos runs park a frozen
 # ManualClock at/behind it so the vote-time floor pins all timestamps
 GENESIS_TIME_NS = 1_700_000_000_000_000_000
+
+
+async def _deliver_after(delay: float, coro) -> None:
+    try:
+        await asyncio.sleep(delay)
+    except asyncio.CancelledError:
+        coro.close()  # net.stop() mid-delay: don't leak an un-awaited coro
+        raise
+    await coro
 
 
 def fast_config() -> ConsensusConfig:
@@ -108,9 +116,9 @@ class Node:
         config: ConsensusConfig | None = None,
         wal_dir: str | None = None,
         app=None,
-        fs=None,  # libs/chaosfs.FS — the file layer the WAL writes through
+        fs=None,  # libs/chaosfs.FS — storage fault injection for the WAL
         clock=None,  # libs/clock.Clock — injectable consensus time
-        block_store=None,  # reuse across crash/restart cycles
+        block_store=None,  # reuse across crash/restart cycles (RouterNet)
         state_store=None,
         device=DEFAULT_DEVICE,
     ):
@@ -186,13 +194,21 @@ class Node:
 
 class LocalNetwork:
     """N validator nodes with broadcast hooks delivering every outbound
-    consensus message to every other node's peer queue; node ids are
-    "node0".."nodeN-1". `base_clock` (a frozen `ManualClock`, say) is
-    every validator's clock, which makes a run's vote and block
-    timestamps reproducible.
+    consensus message to every other node's peer queue.
 
-    `chaos` (the reference's libs/chaos.ChaosNetwork fault plan) waits for
-    the port of libs/chaos.py (ROADMAP item 17): passing one raises."""
+    `chaos` (libs/chaos.ChaosNetwork) threads the fault plan under the
+    hook wiring — drops, asymmetric partitions, delays, reorders, and
+    duplicates apply per (sender→receiver) link; node ids are
+    "node0".."nodeN-1". Corruption and bandwidth shaping are
+    byte-stream faults the typed-message hooks cannot model — the
+    constructor REJECTS configs that set their rates (the fault
+    counters would report injections the hook never performed); run
+    those classes over consensus.routernet.RouterNet, which speaks the
+    real router + ChaosTransport byte path. When the chaos config carries
+    `clock_skew_ms`, each validator runs on its own deterministically
+    skewed clock (over `base_clock` if given — a frozen `ManualClock`
+    base makes the whole run's vote/block timestamps
+    bit-reproducible)."""
 
     def __init__(
         self,
@@ -206,17 +222,47 @@ class LocalNetwork:
         device=DEFAULT_DEVICE,
     ):
         if chaos is not None:
-            raise NotImplementedError(
-                "LocalNetwork(chaos=) waits for the port of libs/chaos.py "
-                "(ROADMAP item 17)"
+            # byte-stream fault classes the typed hooks can NEVER inject:
+            # accepting them here would still bump the `corrupt`/`shaped`
+            # fault counters in ChaosNetwork.plan while no corruption or
+            # shaping ever happens — a chaos matrix that silently lies
+            # about its own coverage. Fail loud; RouterNet
+            # (consensus/routernet.py) runs those classes over the real
+            # router + ChaosTransport byte path.
+            cfgs = [chaos.config, *chaos.config.per_channel.values()]
+            bad = sorted(
+                {
+                    name
+                    for cfg in cfgs
+                    for name in ("corrupt_rate", "bandwidth_rate")
+                    if getattr(cfg, name)
+                }
             )
+            if bad:
+                raise ValueError(
+                    f"LocalNetwork cannot model byte-stream faults {bad}: "
+                    "the typed broadcast hooks never serialize messages, so "
+                    "those injections would be counted but never performed. "
+                    "Use consensus.routernet.RouterNet (real p2p.Router + "
+                    "ChaosTransport) for corruption/bandwidth chaos."
+                )
         self.device = resolve(device)
         self.genesis, self.keys = make_genesis(n_vals, key_type=key_type)
+        self.chaos = chaos
         self.catchup = catchup
         self.catchup_rescues = 0
+        clocks = [base_clock] * n_vals
+        if chaos is not None:
+            clocks = [
+                chaos.clock_for(f"node{i}", base=base_clock)
+                for i in range(n_vals)
+            ]
         self.nodes = [
-            Node(self.genesis, k, config=config, clock=base_clock, device=self.device)
-            for k in self.keys
+            Node(
+                self.genesis, k, config=config, clock=clocks[i],
+                device=self.device,
+            )
+            for i, k in enumerate(self.keys)
         ]
         self._tasks: list[asyncio.Task] = []
 
@@ -234,15 +280,29 @@ class LocalNetwork:
 
     def _make_hook(self, sender: int):
         def hook(msg):
-            mi = self._to_input(msg)
-            if mi is None:
-                return
-            kind, args = mi
             for j, other in enumerate(self.nodes):
                 if j == sender or other.cs is None:
                     continue
-                coro = getattr(other.cs, kind)(*args, f"node{sender}")
-                self._tasks.append(asyncio.get_running_loop().create_task(coro))
+                mi = self._to_input(msg)
+                if mi is None:
+                    continue
+                kind, args = mi
+                delay, copies = 0.0, 1
+                if self.chaos is not None:
+                    plan = self.chaos.plan(f"node{sender}", f"node{j}", 0)
+                    if plan.drop:
+                        continue
+                    # reorder = extra delay pushing past successors, as
+                    # in ChaosConnection.send_message
+                    delay = plan.delay_s + (0.05 if plan.reorder else 0.0)
+                    copies = 2 if plan.duplicate else 1
+                for _ in range(copies):
+                    coro = getattr(other.cs, kind)(*args, f"node{sender}")
+                    if delay > 0:
+                        coro = _deliver_after(delay, coro)
+                    self._tasks.append(
+                        asyncio.get_running_loop().create_task(coro)
+                    )
 
         return hook
 
@@ -265,8 +325,9 @@ class LocalNetwork:
         node that already committed that height. Production nodes get
         this from `_send_catchup_commit_vote` + part gossip over real
         routers; without it the direct-hook harness can wedge forever.
-        It models the out-of-band block-sync path, not the vote-gossip
-        links."""
+        The relay deliberately ignores the chaos fault plan: it models
+        the out-of-band block-sync path, not the vote-gossip links the
+        chaos layer is partitioning."""
         from ..types.keys import SignedMsgType
         from ..types.vote import Vote
 

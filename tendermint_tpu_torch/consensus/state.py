@@ -27,6 +27,15 @@ The state machine's device is its `BlockExecutor`'s (`self.device`):
 unless the executor was given "cpu". Vote and proposal signatures go
 through the running VerifyHub (its device) when one is acquired, and
 through the host otherwise.
+
+WAL replay drops an input that fails its checks, as the live loop does
+(the JAX package's replay raises on it, and the node cannot start).
+
+A device error (`crypto.batch.DeviceError`) is never a verdict here,
+unlike any other input failure: the receive loop lets it through where
+it drops a failed input, a proposal whose check raised it gets no nil
+prevote, and the receive task ends with it (`device_error`), which
+`wait_for_height` then re-raises rather than time out.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..config import ConsensusConfig
+from ..crypto.batch import DeviceError
 from ..evidence import EvidencePoolI, NopEvidencePool
 from ..libs import trace
 from ..libs.clock import SYSTEM, Clock
@@ -222,6 +232,8 @@ class ConsensusState(Service):
         self._n_started_height = 0
         self._wake = asyncio.Event()  # new-height nudge for tests
         self._decided: asyncio.Event = asyncio.Event()
+        #: the DeviceError that ended the receive task, if one did
+        self.device_error: DeviceError | None = None
         self._sign_jobs: list[tuple] = []  # deferred privval signing
 
         # step-latency instrumentation (folded into /metrics via
@@ -420,8 +432,15 @@ class ConsensusState(Service):
                 msg, peer = m.decode_wal_message(rec.data)
                 if isinstance(msg, TimeoutInfo):
                     self._handle_timeout(msg)
-                else:
+                    continue
+                try:
                     self._handle_msg(MsgInfo(msg, peer or ""))
+                except (ConflictingVoteError, ValueError) as e:
+                    # the WAL logs a peer's input before it is checked, so an
+                    # input the live loop dropped (a vote whose signature a
+                    # corrupted frame broke) is dropped again, as the
+                    # reference's Go replay does; the JAX package raises here
+                    self.logger.info("replay: dropped invalid WAL input: %r", e)
         finally:
             self._replay_mode = False
         self.logger.info("WAL replay done at height %d", cs_height)
@@ -462,15 +481,22 @@ class ConsensusState(Service):
     RECV_BURST = 64
 
     async def _receive_routine(self) -> None:
-        while True:
-            item = await self.msg_queue.get()
-            await self._process_input(item)
-            for _ in range(self.RECV_BURST - 1):
-                try:
-                    item = self.msg_queue.get_nowait()
-                except asyncio.QueueEmpty:
-                    break
+        try:
+            while True:
+                item = await self.msg_queue.get()
                 await self._process_input(item)
+                for _ in range(self.RECV_BURST - 1):
+                    try:
+                        item = self.msg_queue.get_nowait()
+                    except asyncio.QueueEmpty:
+                        break
+                    await self._process_input(item)
+        except DeviceError as e:
+            # the card failed: the machine stops here, loudly, and
+            # wait_for_height re-raises it (module docstring)
+            self.device_error = e
+            self._decided.set()
+            raise
 
     async def _process_input(self, item) -> None:
         if self._paused:
@@ -519,6 +545,8 @@ class ConsensusState(Service):
             self.logger.info(
                 "found conflicting vote, sent to evidence pool: %s", e.new
             )
+        except DeviceError:
+            raise  # never a dropped input: it ends the receive task
         except (VoteSetError, BlockValidationError, ValueError) as e:
             self.logger.info("dropped invalid consensus input: %r", e)
         except Exception:  # noqa: BLE001 — the ONE receive task
@@ -546,6 +574,8 @@ class ConsensusState(Service):
             ):
                 await self._drain_signing()
                 await self._drain_finalize()
+        except DeviceError:
+            raise
         except Exception as e:
             self.logger.error(
                 "finalize failed at height %d: %r", self.rs.height, e
@@ -972,6 +1002,8 @@ class ConsensusState(Service):
             return
         try:
             self.block_exec.validate_block(self.state, rs.proposal_block)
+        except DeviceError:
+            raise  # the card failed, not the proposal: no nil prevote
         except (BlockValidationError, ValueError) as e:
             self.logger.info("prevote nil: invalid proposal block: %r", e)
             self._sign_add_vote(SignedMsgType.PREVOTE, NIL_BLOCK_ID)
@@ -1209,6 +1241,8 @@ class ConsensusState(Service):
         """Test helper: block until consensus commits `height`."""
         deadline = self.clock.monotonic() + timeout
         while self.rs.height <= height:
+            if self.device_error is not None:
+                raise self.device_error
             remaining = deadline - self.clock.monotonic()
             if remaining <= 0:
                 raise TimeoutError(

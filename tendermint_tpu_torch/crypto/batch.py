@@ -26,8 +26,13 @@ front of the BLS device path. Here the device is usable as soon as
 `device=` resolves; `MIN_TPU_BATCH` stays at its default (32, or
 TMTPU_MIN_TPU_BATCH) until `_measure_cutoff(device)` is called; the
 verifier's device routes BLS as it routes `kernel_eq`; and a device
-error propagates to the caller. `CPUBatchVerifier` is the host floor the
-device path is measured against.
+error propagates to the caller as a `DeviceError` (the original error is
+its `__cause__`). The catch-alls above this layer (the consensus receive
+loop, block-sync apply, state-sync restore, the scenario runner) let a
+`DeviceError` through where they absorb any other error, and
+`device_errors()` counts every one raised in the process, so a harness
+can tell a failed card from a lossy link. `CPUBatchVerifier` is the host
+floor the device path is measured against.
 """
 
 from __future__ import annotations
@@ -48,6 +53,37 @@ _EDWARDS = (ED25519, SR25519)
 _BATCHABLE = _EDWARDS + (BLS12381,)
 
 logger = logging.getLogger("crypto.batch")
+
+
+class DeviceError(RuntimeError):
+    """A verification batch failed on its device: a kernel that did not
+    build or launch, operands on the wrong device, a plain twin that
+    raised. It carries the original error's message, and the error itself
+    as `__cause__`. Callers that absorb errors (drop the message, punish
+    the peer, try the next snapshot) re-raise it: a device error is never
+    a verdict."""
+
+
+#: every DeviceError raised in this process: (count, the last one)
+_DEVICE_ERRORS: list = [0, None]
+
+
+def device_errors() -> tuple[int, "DeviceError | None"]:
+    """How many DeviceErrors this process has raised, and the last one.
+    A harness snapshots the count before a run and re-raises the last
+    error if the count moved, wherever in the run it was caught."""
+    return _DEVICE_ERRORS[0], _DEVICE_ERRORS[1]
+
+
+def device_error(err: BaseException, n_items: int) -> DeviceError:
+    """Count a failed device batch (`libs.metrics.RESILIENCE`, the
+    process log) and wrap it: `raise device_error(e, n) from e`."""
+    record_resilience("device_error_batches")
+    record_resilience("device_error_sigs", n_items)
+    out = DeviceError(str(err))
+    _DEVICE_ERRORS[0] += 1
+    _DEVICE_ERRORS[1] = out
+    return out
 
 
 class CPUBatchVerifier(BatchVerifier):
@@ -233,10 +269,10 @@ class AdaptiveBatchVerifier(BatchVerifier):
     def _on_device(run, items) -> tuple[list[bool], str]:
         try:
             return run(items), "cuda"
-        except Exception:
-            record_resilience("device_error_batches")
-            record_resilience("device_error_sigs", len(items))
+        except DeviceError:
             raise
+        except Exception as e:
+            raise device_error(e, len(items)) from e
 
     def _verify_edwards(self, items) -> tuple[list[bool], str]:
         if len(items) >= MIN_TPU_BATCH:
@@ -317,14 +353,19 @@ def bls_aggregate_verify(
         bls.STATS["aggregate_failures"] += 1
         return False
     item = [(bls_math.NEG_G1_GEN, agg)] + list(zip(pts, bls_pairing.hash_to_g2(msgs)))
-    ok = bool(
-        bls_pairing.verify_pairs_batch(
-            [item],
-            pad_to=bls_pairing.bucket_items(1),
-            pair_pad=bls_pairing.bucket_pairs(len(item)),
-            device=dev,
-        )[0]
-    )
+    try:
+        ok = bool(
+            bls_pairing.verify_pairs_batch(
+                [item],
+                pad_to=bls_pairing.bucket_items(1),
+                pair_pad=bls_pairing.bucket_pairs(len(item)),
+                device=dev,
+            )[0]
+        )
+    except DeviceError:
+        raise
+    except Exception as e:
+        raise device_error(e, len(pub_keys)) from e
     if not ok:
         bls.STATS["aggregate_failures"] += 1
     return ok

@@ -16,14 +16,14 @@ and to the VerifyHub it acquires (the first acquirer's config wins in a
 process, device included). Nothing on the node's path catches a device
 error and carries on on the host.
 
-Differences by design, until the slices that port them:
+A difference by design, until the RPC slice ports it:
+`NodeConfig.rpc_laddr` raises NotImplementedError, and the reference's
+`rpc_pprof` is not a field yet.
 
-  * `NodeConfig.chaos`, `NodeConfig.chaos_fs` and the TMTPU_CHAOS_* /
-    TMTPU_CHAOS_FS_* env raise NotImplementedError (libs/chaos.py and the
-    chaos-fs controller come with the scenario harness);
-  * `NodeConfig.rpc_laddr` raises NotImplementedError, and the
-    reference's `rpc_pprof` is not a field yet (the RPC slice).
-
+Chaos-net (`NodeConfig.chaos`, TMTPU_CHAOS_*) wraps every transport in
+libs/chaos.py's fault layer and skews the validator's clock; chaos-fs
+(`NodeConfig.chaos_fs`, TMTPU_CHAOS_FS_*) runs the WAL on libs/chaosfs.py's
+fault-injecting FS and wraps the block and state DBs, as in the reference.
 The node reads TMTPU_VERIFYHUB_DISABLE, TMTPU_INGRESS_DISABLE and
 TMTPU_CATCHUP_RATE as the reference does."""
 
@@ -114,15 +114,20 @@ class NodeConfig:
     # longer than watchdog_threshold_s. Empty disables.
     watchdog_dir: str = ""
     watchdog_threshold_s: float = 5.0
-    # chaos-net fault injection (libs/chaos.py): waits for that port —
-    # anything but None raises, and so does an armed TMTPU_CHAOS_* env
+    # chaos-net fault injection (libs/chaos.py): a ChaosConfig (or a
+    # shared ChaosNetwork for multi-node in-process tests that need
+    # partitions) threaded under every transport. None also consults the
+    # TMTPU_CHAOS_* env vars so any node can run under fault load without
+    # code changes.
     chaos: object | None = None
-    # chaos-fs storage fault injection: waits for the chaos-fs
-    # controller — anything but None raises, and so does an armed
-    # TMTPU_CHAOS_FS_* env
+    # chaos-fs storage fault injection (libs/chaosfs.py): a ChaosFSConfig
+    # (TOML section or libs dataclass) or a shared ChaosFS controller;
+    # when active the WAL rides the fault-injecting FS and the block/
+    # state DBs are wrapped in ChaosDB. None consults TMTPU_CHAOS_FS_*.
     chaos_fs: object | None = None
     # injectable consensus time source (libs/clock.py). None = system
-    # clock
+    # clock; when chaos-net carries a clock_skew_ms fault class the node
+    # derives its (deterministically skewed) validator clock from it.
     clock: object | None = None
     # VerifyHub (crypto/verify_hub.py): the node acquires the process
     # hub on start and releases it on stop; every vote/proposal/commit
@@ -170,8 +175,12 @@ class Node(Service):
         self.node_id = node_id_from_pubkey(node_key.pub_key())
         self.priv_validator = priv_validator
 
+        self.chaos_fs = self._resolve_chaos_fs()
         block_db = block_db or MemDB()
         state_db = state_db or MemDB()
+        if self.chaos_fs is not None:
+            block_db = self.chaos_fs.wrap_db(block_db)
+            state_db = self.chaos_fs.wrap_db(state_db)
         self.block_store = BlockStore(block_db)
         self.state_store = StateStore(state_db)
         self.evidence_db = evidence_db or MemDB()
@@ -189,6 +198,7 @@ class Node(Service):
 
             addr_book = AddressBook(config.addr_book_path)
         self.peer_manager = PeerManager(self.node_id, addr_book=addr_book)
+        transports = self._maybe_wrap_chaos(transports)
         self.router = Router(
             self.node_info, self.node_key, self.peer_manager, transports
         )
@@ -208,6 +218,92 @@ class Node(Service):
         self.indexer = None
         self.sink = None
         self.state = None
+
+    def _maybe_wrap_chaos(self, transports: list[Transport]) -> list[Transport]:
+        """Thread the chaos-net fault layer under the router when
+        configured (NodeConfig.chaos or TMTPU_CHAOS_* env)."""
+        from .config import ChaosNetConfig
+        from .libs.chaos import ChaosConfig, ChaosNetwork
+
+        self.chaos_net = None
+        cfg = self.config.chaos
+        if isinstance(cfg, ChaosNetConfig):  # the TOML config section
+            if not cfg.enabled:
+                # an EXPLICIT disable in the config file wins over any
+                # TMTPU_CHAOS_* env vars inherited from the environment
+                return transports
+            cfg = ChaosConfig(
+                seed=cfg.seed,
+                drop_rate=cfg.drop_rate,
+                delay_ms=cfg.delay_ms,
+                duplicate_rate=cfg.duplicate_rate,
+                reorder_rate=cfg.reorder_rate,
+                corrupt_rate=cfg.corrupt_rate,
+                bandwidth_rate=cfg.bandwidth_rate,
+                gray_delay_ms=cfg.gray_delay_ms,
+                clock_skew_ms=cfg.clock_skew_ms,
+                clock_drift=cfg.clock_drift,
+            )
+        if isinstance(cfg, ChaosNetwork):  # shared controller (test nets)
+            self.chaos_net = cfg
+        elif isinstance(cfg, ChaosConfig):
+            if cfg.enabled():
+                self.chaos_net = ChaosNetwork(cfg)
+        elif cfg is None:
+            env = ChaosConfig.from_env()
+            if env.enabled():
+                self.chaos_net = ChaosNetwork(env)
+        if self.chaos_net is None:
+            return transports
+        self.logger.warning("chaos-net fault injection ENABLED: %s", self.chaos_net.config)
+        return [self.chaos_net.wrap(t, self.node_id) for t in transports]
+
+    def _resolve_chaos_fs(self):
+        """Resolve NodeConfig.chaos_fs (TOML section, libs dataclass,
+        shared controller, or TMTPU_CHAOS_FS_* env) into a ChaosFS — or
+        None for the real filesystem."""
+        from .config import ChaosFSConfig as TomlChaosFSConfig
+        from .libs.chaosfs import ChaosFS, ChaosFSConfig
+
+        cfg = self.config.chaos_fs
+        explicit_enable = False
+        if isinstance(cfg, TomlChaosFSConfig):  # the TOML config section
+            if not cfg.enabled:
+                return None  # explicit disable beats inherited env vars
+            explicit_enable = True
+            cfg = ChaosFSConfig(
+                seed=cfg.seed,
+                torn_write_rate=cfg.torn_write_rate,
+                torn_offset=cfg.torn_offset,
+                lost_fsync_rate=cfg.lost_fsync_rate,
+                enospc_rate=cfg.enospc_rate,
+                enospc_at_byte=cfg.enospc_at_byte,
+                bitrot_rate=cfg.bitrot_rate,
+            )
+            if not cfg.enabled():
+                # enabled=true with every rate zero: the operator opted in
+                # but left the rates to the TMTPU_CHAOS_FS_* env vars
+                cfg = ChaosFSConfig.from_env()
+        if isinstance(cfg, ChaosFS):  # shared controller (test harnesses)
+            chaos_fs = cfg
+        elif isinstance(cfg, ChaosFSConfig):
+            chaos_fs = ChaosFS(cfg) if cfg.enabled() else None
+        elif cfg is None:
+            env = ChaosFSConfig.from_env()
+            chaos_fs = ChaosFS(env) if env.enabled() else None
+        else:
+            chaos_fs = None
+        if chaos_fs is not None:
+            self.logger.warning(
+                "chaos-fs storage fault injection ENABLED: %s", chaos_fs.config
+            )
+        elif explicit_enable:
+            self.logger.warning(
+                "chaos_fs enabled in config but NO fault class armed "
+                "(all rates zero and no TMTPU_CHAOS_FS_* env) — running "
+                "on the real filesystem"
+            )
+        return chaos_fs
 
     # -- channels --------------------------------------------------------
 
@@ -350,12 +446,17 @@ class Node(Service):
 
         wal = WAL(
             self.config.wal_dir or tempfile.mkdtemp(prefix="cswal-"),
+            fs=self.chaos_fs,
             logger=self.logger.getChild("wal"),
         )
         from .consensus.replay import report_wal_repair
 
         report_wal_repair(wal, self.logger.getChild("replay"))
         clock = self.config.clock
+        if self.chaos_net is not None:
+            # clock-skew fault class: the validator's own wall clock is
+            # deterministically wrong (seeded per node id)
+            clock = self.chaos_net.clock_for(self.node_id, base=clock)
         ingress_disabled = os.environ.get(
             "TMTPU_INGRESS_DISABLE", ""
         ).lower() not in ("", "0", "false")
@@ -623,6 +724,12 @@ class Node(Service):
     async def wait_for_height(self, height: int, timeout: float = 60.0) -> None:
         deadline = asyncio.get_running_loop().time() + timeout
         while self.block_store.height() < height:
+            # a device error ended consensus or block-sync: raise it
+            # rather than time out
+            for svc in (self.consensus, self.blocksync_reactor):
+                err = getattr(svc, "device_error", None)
+                if err is not None:
+                    raise err
             if asyncio.get_running_loop().time() > deadline:
                 raise TimeoutError(
                     f"node {self.node_id[:8]} stuck at {self.block_store.height()}"
@@ -630,41 +737,9 @@ class Node(Service):
             await asyncio.sleep(0.05)
 
 
-_CHAOS_ENV = (
-    "TMTPU_CHAOS_DROP", "TMTPU_CHAOS_DELAY_MS", "TMTPU_CHAOS_DUP",
-    "TMTPU_CHAOS_REORDER", "TMTPU_CHAOS_CORRUPT", "TMTPU_CHAOS_BW",
-    "TMTPU_CHAOS_GRAY_MS", "TMTPU_CHAOS_SKEW_MS", "TMTPU_CHAOS_DRIFT",
-)
-_CHAOS_FS_ENV = (
-    "TMTPU_CHAOS_FS_TORN", "TMTPU_CHAOS_FS_LOST_FSYNC",
-    "TMTPU_CHAOS_FS_ENOSPC", "TMTPU_CHAOS_FS_BITROT",
-)
-
-
-def _armed(names) -> list[str]:
-    """The env vars among `names` that would arm a fault class in the
-    reference (a non-zero rate)."""
-    return [n for n in names if float(os.environ.get(n, "") or 0.0)]
-
-
 def _refuse_unported(config: NodeConfig) -> None:
     """Raise on a setting whose subsystem is not ported yet, rather than
-    run without it: chaos-net and chaos-fs fault injection (the scenario
-    harness slice: libs/chaos.py) and RPC (the RPC slice)."""
-    if config.chaos is not None or _armed(_CHAOS_ENV):
-        raise NotImplementedError(
-            "chaos-net fault injection (NodeConfig.chaos, TMTPU_CHAOS_*) waits "
-            "for the port of libs/chaos.py (ROADMAP item 17)"
-        )
-    if (
-        config.chaos_fs is not None
-        or _armed(_CHAOS_FS_ENV)
-        or int(os.environ.get("TMTPU_CHAOS_FS_ENOSPC_AT", "-1") or -1) >= 0
-    ):
-        raise NotImplementedError(
-            "chaos-fs fault injection (NodeConfig.chaos_fs, TMTPU_CHAOS_FS_*) "
-            "waits for the port of libs/chaos.py (ROADMAP item 17)"
-        )
+    run without it: RPC (the RPC slice)."""
     if config.rpc_laddr:
         raise NotImplementedError(
             "NodeConfig.rpc_laddr: the RPC server waits for the RPC port "

@@ -7,9 +7,7 @@ tendermint_tpu/p2p/testing.py.
 `RouterShell` and `TestNetwork` take `device=` like every entry point of
 the port: "cuda" by default, which raises without a card; "cpu" asks for
 the host. The routers themselves touch no device; the device is what a
-caller's reactors on the shell or network run on (`.device`). The
-reference's chaos-wrapped transport (`RouterShell(chaos=)`) waits for the
-port of libs/chaos.py: passing one raises."""
+caller's reactors on the shell or network run on (`.device`)."""
 
 from __future__ import annotations
 
@@ -27,9 +25,10 @@ from .types import NodeAddress, NodeInfo, node_id_from_pubkey
 class RouterShell:
     """The router-backed p2p shell shared by the chaos harnesses
     (tests/chaos_net.py blocksync nets, consensus/routernet.py consensus
-    nets): deterministic node key, in-memory transport, peer manager,
-    and a Router. Callers open their reactor channels on `shell.router`
-    and subscribe peer updates on `shell.peer_manager`.
+    nets): deterministic node key, in-memory transport — chaos-wrapped
+    when a `ChaosNetwork` is given — peer manager, and a Router. Callers
+    open their reactor channels on `shell.router` and subscribe peer
+    updates on `shell.peer_manager`.
 
     Keys are derived from (key_seed, index), so rebuilding a shell with
     the same coordinates yields the same node id — the in-process analog
@@ -41,22 +40,17 @@ class RouterShell:
         index: int,
         chain_id: str,
         *,
-        chaos=None,  # libs/chaos.ChaosNetwork: raises until that port
+        chaos=None,  # libs/chaos.ChaosNetwork — wraps the transport
         key_seed: str = "router-shell",
         moniker: str = "",
         max_connected: int = 64,
         peer_queue_size: int = 4096,
         # additional transports (e.g. a TCP/UDS socket transport for
-        # RouterNet-XL inter-process links), registered on the router
-        # by PROTOCOL
+        # RouterNet-XL inter-process links) — chaos-wrapped like the
+        # memory transport, registered on the router by PROTOCOL
         extra_transports: list | None = None,
         device=DEFAULT_DEVICE,
     ):
-        if chaos is not None:
-            raise NotImplementedError(
-                "RouterShell(chaos=) waits for the port of libs/chaos.py "
-                "(ROADMAP item 17)"
-            )
         self.device = resolve(device)
         self.index = index
         self.priv_key = ed25519.Ed25519PrivKey(
@@ -68,8 +62,14 @@ class RouterShell:
             network=chain_id,
             moniker=moniker or f"node{index}",
         )
-        self.transport = memory.create_transport(self.node_id)
-        self.extra_transports = list(extra_transports or [])
+        inner = memory.create_transport(self.node_id)
+        self.transport = (
+            chaos.wrap(inner, self.node_id) if chaos is not None else inner
+        )
+        self.extra_transports = [
+            chaos.wrap(t, self.node_id) if chaos is not None else t
+            for t in (extra_transports or [])
+        ]
         self.peer_manager = PeerManager(
             self.node_id, max_connected=max_connected
         )

@@ -30,7 +30,9 @@ The reactor resolves its `device` when it is built (the default "cuda"
 raises without a card) and verifies on it: the light client that checks
 the snapshot's headers and every backfill window. The per-peer
 `CircuitBreaker` and `BackoffPolicy` are network policy: they pace
-fetches from peers, not the card.
+fetches from peers, not the card. A device error (`crypto.batch.
+DeviceError`) in a restore raises out of `sync()`; the next snapshot is
+tried only after a bad snapshot.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from dataclasses import dataclass
 from fractions import Fraction
 
 from ..abci import types as abci
+from ..crypto.batch import DeviceError
 from ..device import DEFAULT_DEVICE, resolve
 from ..libs import trace
 from ..libs.retry import BackoffPolicy, CircuitBreaker
@@ -432,8 +435,8 @@ class StateSyncReactor(Service):
             attempts[key] = attempts.get(key, 0) + 1
             try:
                 return await self._restore(snap, list(providers), light, config)
-            except SyncAbortedError:
-                raise
+            except (SyncAbortedError, DeviceError):
+                raise  # a failed card is not a bad snapshot
             except Exception as e:
                 self.logger.info("snapshot %s failed: %r; trying next", key, e)
 

@@ -46,8 +46,8 @@ from tendermint_tpu_torch.types.block import Block
 
 MS = 1_000_000
 
-REF = types.SimpleNamespace(harness=j_harness, clock=j_clock, kw={})
-PORT = types.SimpleNamespace(harness=p_harness, clock=p_clock, kw={"device": "cpu"})
+REF = types.SimpleNamespace(harness=j_harness, clock=j_clock, wal=j_wal, kw={})
+PORT = types.SimpleNamespace(harness=p_harness, clock=p_clock, wal=p_wal, kw={"device": "cpu"})
 
 
 def _cleanup(nodes) -> None:
@@ -177,8 +177,55 @@ async def test_no_empty_blocks_stalls_then_advances_on_a_tx():
 
 
 def test_local_network_chaos_waits_for_its_port():
-    with pytest.raises(NotImplementedError, match="item 17"):
-        p_harness.LocalNetwork(2, chaos=object(), device="cpu")
+    """`LocalNetwork(chaos=)` threads the fault plan under its hook wiring
+    as the reference does (the port refused it until libs/chaos.py was
+    ported): byte-stream classes are rejected with the reference's
+    ValueError, each validator gets the reference's skewed clock, and the
+    reference's live-chaos run (tests/test_chaos_live.py: skewed frozen
+    clocks, a one-way partition) commits heights 1-3 on every node with
+    the reference's header times."""
+    import tendermint_tpu.libs.chaos as j_chaos
+    import tendermint_tpu_torch.libs.chaos as p_chaos
+
+    for bad in (dict(corrupt_rate=0.1), dict(bandwidth_rate=1024.0)):
+        with pytest.raises(ValueError, match="byte-stream"):
+            p_harness.LocalNetwork(3, chaos=p_chaos.ChaosNetwork(p_chaos.ChaosConfig(**bad)),
+                                   device="cpu")
+    with pytest.raises(ValueError, match="byte-stream"):
+        p_harness.LocalNetwork(3, device="cpu", chaos=p_chaos.ChaosNetwork(p_chaos.ChaosConfig(
+            per_channel={0x22: p_chaos.ChaosConfig(corrupt_rate=0.5)})))
+    skew = dict(seed=5, clock_skew_ms=80.0, clock_drift=0.02)
+    pnet = p_harness.LocalNetwork(3, device="cpu",
+                                  chaos=p_chaos.ChaosNetwork(p_chaos.ChaosConfig(**skew)))
+    jnet = j_harness.LocalNetwork(3, chaos=j_chaos.ChaosNetwork(j_chaos.ChaosConfig(**skew)))
+    assert [(n.clock.offset_ns, n.clock.rate) for n in pnet.nodes] == [
+        (n.clock.offset_ns, n.clock.rate) for n in jnet.nodes]
+    _cleanup(pnet.nodes + jnet.nodes)
+
+    async def run(pkg, chaos_mod):
+        """tests/test_chaos_live.py's run: 4 validators on frozen clocks
+        skewed per validator, node0 -> node1 cut for the whole run."""
+        chaos = chaos_mod.ChaosNetwork(chaos_mod.ChaosConfig(seed=9, clock_skew_ms=80.0))
+        chaos.partition_oneway("node0", "node1")
+        net = pkg.harness.LocalNetwork(
+            4, config=pkg.harness.fast_config(), chaos=chaos,
+            base_clock=pkg.clock.ManualClock(pkg.harness.GENESIS_TIME_NS - 500 * MS), **pkg.kw)
+        await net.start()
+        try:
+            await net.wait_for_height(3, 30)
+            hashes = [[n.block_store.load_block(h).hash() for h in range(1, 4)]
+                      for n in net.nodes]
+            times = [net.nodes[0].block_store.load_block(h).header.time_ns for h in range(1, 4)]
+            return dict(chaos.faults), hashes, times
+        finally:
+            await net.stop()
+            _cleanup(net.nodes)
+
+    ref_faults, _ref_hashes, ref_times = asyncio.run(asyncio.wait_for(run(REF, j_chaos), 45))
+    faults, hashes, times = asyncio.run(asyncio.wait_for(run(PORT, p_chaos), 45))
+    assert all(h == hashes[0] for h in hashes)  # every node, one chain
+    assert times == ref_times  # every header time a pure function of its height
+    assert faults["asym_drop"] > 0 and faults["clock_skew"] == 4 == ref_faults["clock_skew"]
 
 
 # -- crash and resume from the reference's WAL -------------------------------------
@@ -231,6 +278,54 @@ def test_port_node_resumes_from_the_references_wal_and_stores(tmp_path, caplog):
     assert new_height > height
     assert block.last_commit.height == height
     assert block.header.last_block_id.hash == ref.block_store.load_block(height).hash()
+
+
+def test_replay_drops_a_wal_vote_whose_signature_a_corrupted_frame_broke(tmp_path, caplog):
+    """A difference by design (ROADMAP Queue C, C2): the WAL logs a peer's
+    vote before its signature is checked, so a frame corrupted on the wire
+    leaves a vote with a broken signature in the WAL. The JAX package's
+    replay raises on it and the node cannot restart (a 50-validator
+    full_taxonomy run's crashed node stayed down this way); the port's
+    replay drops it, as the live loop did and as the reference's Go replay
+    does, and the node commits the next height."""
+    import tendermint_tpu.consensus.messages as j_m
+    import tendermint_tpu.types.block as j_block
+    import tendermint_tpu.types.vote as j_vote
+    import tendermint_tpu_torch.types.block as p_block
+    import tendermint_tpu_torch.types.vote as p_vote
+
+    async def run(pkg, msgs, block, vote, d):
+        genesis, keys = pkg.harness.make_genesis(1)
+        old = pkg.harness.Node(genesis, keys[0], wal_dir=d, **pkg.kw)
+        await old.start()
+        await old.cs.wait_for_height(2, timeout=20)
+        await old.stop()
+        # the crash: the WAL's last record is a vote whose signature broke
+        h = old.block_store.height() + 1
+        addr = keys[0].pub_key().address()
+        bad = vote.Vote(type=1, height=h, round=0, timestamp_ns=0,
+                        block_id=block.BlockID(b"\x01" * 32, block.PartSetHeader(1, b"\x02" * 32)),
+                        validator_address=addr, validator_index=0, signature=bytes(64))
+        wal = pkg.wal.WAL(d)
+        wal.write_sync(msgs.encode_wal_message(msgs.VoteMessage(bad), "peer-x"))
+        wal.close()
+        node = pkg.harness.Node(genesis, keys[0], wal_dir=d, app=old.app,
+                                block_store=old.block_store, state_store=old.state_store,
+                                **pkg.kw)
+        try:
+            await node.start()
+            await node.cs.wait_for_height(h, timeout=20)
+            return node.block_store.height(), h
+        finally:
+            await node.stop()
+
+    with pytest.raises(ValueError, match="signature"):
+        asyncio.run(asyncio.wait_for(run(REF, j_m, j_block, j_vote, str(tmp_path / "ref")), 60))
+    with caplog.at_level(logging.INFO):
+        height, h = asyncio.run(asyncio.wait_for(
+            run(PORT, m, p_block, p_vote, str(tmp_path / "port")), 60))
+    assert height >= h
+    assert "replay: dropped invalid WAL input" in caplog.text
 
 
 # -- the reactor --------------------------------------------------------------

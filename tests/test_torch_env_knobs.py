@@ -18,7 +18,13 @@ only codec is the interpreted one until the generator is ported. The
 full node's knobs (TMTPU_VERIFYHUB_DISABLE, TMTPU_INGRESS_DISABLE,
 TMTPU_CATCHUP_RATE, read when a Node starts, and TMTPU_TRACE_DIR, read
 when the flight recorder is configured) are each set and unset around a
-one-validator Node's start, in one fresh interpreter per package."""
+one-validator Node's start, in one fresh interpreter per package. The
+chaos knobs (TMTPU_CHAOS_* and TMTPU_CHAOS_FS_*) are read at each
+`ChaosConfig.from_env()` / `ChaosFSConfig.from_env()` call, each set alone
+and read in both packages in this interpreter; a Node reads them through
+those calls (tests/test_torch_node.py::test_unported_settings_raise), and
+the scenario runner reads TMTPU_CHAOS_DUMP_DIR
+(tests/test_torch_routernet.py::test_wedge_dump_is_a_structured_outcome)."""
 
 from __future__ import annotations
 
@@ -272,3 +278,52 @@ def test_port_node_reads_its_knobs_as_the_reference_does():
         "TMTPU_CATCHUP_RATE": [250.0, None],
         "TMTPU_TRACE_DIR": ["/tmp/flight", "/cfg"],
     }
+
+
+#: every chaos knob, a value that arms it, and the field it sets
+CHAOS_KNOBS = {
+    "TMTPU_CHAOS_SEED": ("11", "seed"), "TMTPU_CHAOS_DROP": ("0.2", "drop_rate"),
+    "TMTPU_CHAOS_DELAY_MS": ("3.5", "delay_ms"), "TMTPU_CHAOS_DUP": ("0.1", "duplicate_rate"),
+    "TMTPU_CHAOS_REORDER": ("0.05", "reorder_rate"),
+    "TMTPU_CHAOS_CORRUPT": ("0.01", "corrupt_rate"), "TMTPU_CHAOS_BW": ("2048", "bandwidth_rate"),
+    "TMTPU_CHAOS_GRAY_MS": ("90", "gray_delay_ms"), "TMTPU_CHAOS_SKEW_MS": ("40", "clock_skew_ms"),
+    "TMTPU_CHAOS_DRIFT": ("0.03", "clock_drift"),
+    "TMTPU_CHAOS_FS_SEED": ("5", "seed"), "TMTPU_CHAOS_FS_TORN": ("0.5", "torn_write_rate"),
+    "TMTPU_CHAOS_FS_TORN_OFFSET": ("12", "torn_offset"),
+    "TMTPU_CHAOS_FS_LOST_FSYNC": ("0.25", "lost_fsync_rate"),
+    "TMTPU_CHAOS_FS_ENOSPC": ("0.01", "enospc_rate"),
+    "TMTPU_CHAOS_FS_ENOSPC_AT": ("0", "enospc_at_byte"),
+    "TMTPU_CHAOS_FS_BITROT": ("0.5", "bitrot_rate"),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(CHAOS_KNOBS))
+def test_port_reads_the_chaos_knobs_as_the_reference_does(knob, monkeypatch):
+    import dataclasses
+
+    import tendermint_tpu.libs.chaos as j_chaos
+    import tendermint_tpu.libs.chaosfs as j_chaosfs
+    import tendermint_tpu_torch.libs.chaos as p_chaos
+    import tendermint_tpu_torch.libs.chaosfs as p_chaosfs
+
+    fs = knob.startswith("TMTPU_CHAOS_FS_")
+    ref_cls = j_chaosfs.ChaosFSConfig if fs else j_chaos.ChaosConfig
+    port_cls = p_chaosfs.ChaosFSConfig if fs else p_chaos.ChaosConfig
+    for k in CHAOS_KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    value, field = CHAOS_KNOBS[knob]
+    readings = []
+    for v in (value, None):
+        if v is None:
+            monkeypatch.delenv(knob)
+        else:
+            monkeypatch.setenv(knob, v)
+        ref, port = ref_cls.from_env(), port_cls.from_env()
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.enabled() == ref.enabled()
+        readings.append((getattr(port, field), port.enabled()))
+    assert readings[0][0] == type(readings[1][0])(value)
+    assert readings[0][0] != readings[1][0]
+    # a seed or a tear offset alone arms nothing
+    assert readings[0][1] == (field not in ("seed", "torn_offset"))
+    assert readings[1][1] is False

@@ -824,3 +824,31 @@ def test_node_entry_points_raise_without_cuda_unless_cpu_requested(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn(device="cuda")
     assert fn(device="cpu").device == torch.device("cpu")  # the host, when asked for
+
+
+SCENARIO_MODULES = [
+    "tendermint_tpu_torch.consensus.byzantine",
+    "tendermint_tpu_torch.consensus.routernet",
+    "tendermint_tpu_torch.consensus.scenarios",
+    "tendermint_tpu_torch.libs.chaos",
+    "tendermint_tpu_torch.libs.chaosfs",
+]
+
+
+def test_scan_and_blocked_import_cover_the_scenario_modules():
+    """The AST scan and the jax-blocked import walk every module of the
+    package; the scenario harness's are among them, with the config
+    sections and the device error they read."""
+    assert set(SCENARIO_MODULES) <= set(_port_modules())
+    from tendermint_tpu_torch import config
+    from tendermint_tpu_torch.consensus import scenarios
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.libs import chaos, chaosfs
+
+    assert config.ChaosNetConfig().enabled is False and config.ChaosFSConfig().enabled is False
+    assert not chaos.ChaosConfig().enabled() and not chaosfs.ChaosFSConfig().enabled()
+    assert issubclass(batch.DeviceError, RuntimeError)
+    assert len(scenarios.SCENARIOS) == 17
+    for fn in (scenarios.run_scenario, scenarios.run_sweep, scenarios.run_light_attack,
+               scenarios.run_boot_wave):
+        assert callable(fn)

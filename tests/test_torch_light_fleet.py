@@ -377,13 +377,15 @@ def test_lightd_reads_no_env(chains, monkeypatch):
 
 
 def test_production_modules_never_load_byzantine():
-    """The lunatic provider and the poisoned donor stay quarantined:
-    importing every other module of the port loads neither."""
+    """The lunatic provider, the poisoned donor and the consensus traitors
+    stay quarantined: importing every other module of the port loads none
+    of them, but the scenario harness (consensus/scenarios.py), which is
+    where the reference's design lets them in."""
     code = (
         "import importlib, pathlib, sys\n"
         "root = pathlib.Path('tendermint_tpu_torch')\n"
         "mods = sorted('.'.join(p.with_suffix('').parts).removesuffix('.__init__')\n"
-        "              for p in root.rglob('*.py') if p.stem != 'byzantine')\n"
+        "              for p in root.rglob('*.py') if p.stem not in ('byzantine', 'scenarios'))\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if 'byzantine' in m]\n"

@@ -383,25 +383,93 @@ def test_node_metrics_fold_the_device_errors_and_a_running_hub():
     assert hub is not None
 
 
-# -- settings the port does not run yet -----------------------------------------
+# -- the chaos settings, and the one the port does not run yet (RPC) ----------
 
 
-@pytest.mark.parametrize("setting", [
-    {"chaos": object()}, {"chaos_fs": object()}, {"rpc_laddr": "127.0.0.1:0"},
-    {"env": ("TMTPU_CHAOS_DROP", "0.1")}, {"env": ("TMTPU_CHAOS_FS_TORN", "0.5")},
-    {"env": ("TMTPU_CHAOS_FS_ENOSPC_AT", "0")},
-], ids=["chaos", "chaos_fs", "rpc_laddr", "chaos-env", "chaos-fs-env", "enospc-at-env"])
+#: each setting: the NodeConfig fields it sets (built per package), or
+#: the env var it arms
+SETTINGS = {
+    "chaos": lambda pkg: {"chaos": pkg.config.ChaosNetConfig(
+        enabled=True, seed=3, drop_rate=0.05, clock_skew_ms=50.0, clock_drift=0.01)},
+    "chaos_fs": lambda pkg: {"chaos_fs": pkg.config.ChaosFSConfig(
+        enabled=True, seed=4, torn_write_rate=0.5)},
+    "rpc_laddr": lambda pkg: {"rpc_laddr": "127.0.0.1:0"},
+    "chaos-env": ("TMTPU_CHAOS_DROP", "0.1"),
+    "chaos-fs-env": ("TMTPU_CHAOS_FS_TORN", "0.5"),
+    "enospc-at-env": ("TMTPU_CHAOS_FS_ENOSPC_AT", "0"),
+}
+
+
+def _chaos_wiring(pkg, cfg_fields: dict, start: bool = True) -> dict:
+    """What a Node of `pkg` built with `cfg_fields` wired (and, with
+    `start`, started to height 1 and stopped): its chaos-net and chaos-fs
+    configs, the types of its transports and DBs, its validator clock's
+    skew, whether its WAL runs on its chaos FS."""
+    genesis, keys = pkg.harness.make_genesis(1)
+    cfg = pkg.node.NodeConfig(consensus=pkg.harness.fast_config(), block_sync=False,
+                              **cfg_fields)
+    node = _memory_node(pkg, pkg.memory.MemoryNetwork(), 0, genesis, pkg.kv.KVStoreApp(),
+                        config=cfg, priv_validator=pkg.pv.MockPV(keys[0]))
+
+    async def run():
+        await node.start()
+        try:
+            await node.wait_for_height(1, 20)
+        finally:
+            await _stop([node])
+
+    if start:
+        asyncio.run(asyncio.wait_for(run(), 40))
+    clock = node.consensus.clock if start else None
+    return {
+        "chaos_net": None if node.chaos_net is None else vars(node.chaos_net.config),
+        "chaos_fs": None if node.chaos_fs is None else vars(node.chaos_fs.config),
+        "transports": sorted(type(t).__name__ for t in node.router.transports.values())
+        if isinstance(node.router.transports, dict)
+        else sorted(type(t).__name__ for t in node.router.transports),
+        "dbs": (type(node.block_store.db).__name__, type(node.state_store.db).__name__),
+        "clock": (getattr(clock, "offset_ns", None), getattr(clock, "rate", None)),
+        "wal_fs_is_chaos_fs": start and node.consensus.wal.fs is node.chaos_fs,
+    }
+
+
+@pytest.mark.parametrize("setting", list(SETTINGS), ids=list(SETTINGS))
 def test_unported_settings_raise(setting, monkeypatch):
-    if "env" in setting:
-        monkeypatch.setenv(*setting["env"])
-        cfg = p_node.NodeConfig()
+    """The reference's chaos settings now wire as the reference wires them
+    (chaos-net wraps every transport and skews the validator's clock;
+    chaos-fs wraps the block and state DBs and runs the WAL on its FS),
+    from the config sections and from an armed TMTPU_CHAOS_* /
+    TMTPU_CHAOS_FS_* env alike; a seed alone arms nothing. Only RPC still
+    waits for its port, and raises."""
+    spec = SETTINGS[setting]
+    if setting == "rpc_laddr":
+        genesis, _ = p_harness.make_genesis(1)
+        with pytest.raises(NotImplementedError, match="RPC"):
+            p_node.Node(p_node.NodeConfig(**spec(PORT)), genesis, p_kv.KVStoreApp(),
+                        _node_key(PORT, 0), [p_memory.MemoryNetwork().create_transport("x")],
+                        device="cpu")
+        return
+    if callable(spec):
+        ref, port = _chaos_wiring(REF, spec(REF)), _chaos_wiring(PORT, spec(PORT))
     else:
-        cfg = p_node.NodeConfig(**setting)
-    genesis, _ = p_harness.make_genesis(1)
-    with pytest.raises(NotImplementedError, match="chaos.py|RPC"):
-        p_node.Node(cfg, genesis, p_kv.KVStoreApp(), _node_key(PORT, 0),
-                    [p_memory.MemoryNetwork().create_transport("x")], device="cpu")
+        # ENOSPC at byte 0 stops the WAL's first write: wiring only
+        start = setting != "enospc-at-env"
+        monkeypatch.setenv(*spec)
+        ref, port = _chaos_wiring(REF, {}, start), _chaos_wiring(PORT, {}, start)
+    assert port == ref
+    net_armed = setting in ("chaos", "chaos-env")
+    assert (port["chaos_net"] is not None) == net_armed
+    assert (port["chaos_fs"] is not None) == (not net_armed)
+    if net_armed:
+        assert port["transports"] == ["ChaosTransport"]
+        if setting == "chaos":
+            assert port["clock"][0] is not None and port["clock"][1] != 1.0
+    else:
+        assert port["dbs"] == ("ChaosDB", "ChaosDB")
+        assert port["wal_fs_is_chaos_fs"] == (setting != "enospc-at-env")
+    monkeypatch.delenv(spec[0] if not callable(spec) else "TMTPU_NONE", raising=False)
     monkeypatch.setenv("TMTPU_CHAOS_SEED", "7")  # a seed alone arms nothing
-    monkeypatch.delenv(setting.get("env", ("TMTPU_NONE",))[0], raising=False)
-    p_node.Node(p_node.NodeConfig(), genesis, p_kv.KVStoreApp(), _node_key(PORT, 0),
-                [p_memory.MemoryNetwork().create_transport("x")], device="cpu")
+    monkeypatch.setenv("TMTPU_CHAOS_FS_SEED", "7")
+    plain = _chaos_wiring(PORT, {})
+    assert plain["chaos_net"] is None and plain["chaos_fs"] is None
+    assert plain == _chaos_wiring(REF, {})

@@ -24,16 +24,19 @@ import pytest
 
 import tendermint_tpu.p2p.peermanager as j_pm
 import tendermint_tpu.p2p.pex as j_pex
+import tendermint_tpu.p2p.tcp as j_tcp
 import tendermint_tpu.p2p.testing as j_testing
 import tendermint_tpu.p2p.types as j_types
 import tendermint_tpu_torch.p2p.peermanager as p_pm
 import tendermint_tpu_torch.p2p.pex as p_pex
+import tendermint_tpu_torch.p2p.tcp as p_tcp
 import tendermint_tpu_torch.p2p.testing as p_testing
 import tendermint_tpu_torch.p2p.types as p_types
 
-REF = types.SimpleNamespace(pm=j_pm, pex=j_pex, testing=j_testing, types=j_types, kw={})
+REF = types.SimpleNamespace(pm=j_pm, pex=j_pex, testing=j_testing, types=j_types, tcp=j_tcp,
+                            kw={})
 PORT = types.SimpleNamespace(pm=p_pm, pex=p_pex, testing=p_testing, types=p_types,
-                             kw={"device": "cpu"})
+                             tcp=p_tcp, kw={"device": "cpu"})
 PKGS = pytest.mark.parametrize("pkg", [PORT, REF], ids=["port", "ref"])
 
 
@@ -134,13 +137,60 @@ def test_reconnect_after_disconnect(pkg):
     assert asyncio.run(_reconnect(pkg))
 
 
+async def _chaos_shells(pkg, chaos_mod) -> tuple:
+    """Two shells of `pkg` under one seeded ChaosNetwork (every message
+    corrupted, one extra transport each): the wrapping, and the frames
+    shell 0's router delivers to shell 1's channel."""
+    net = chaos_mod.ChaosNetwork(chaos_mod.ChaosConfig(seed=9, corrupt_rate=1.0))
+    mem = pkg.testing.MemoryNetwork()
+    extra = [pkg.tcp.TCPTransport() for _ in range(2)]  # registered, never listening
+    shells = [pkg.testing.RouterShell(mem, i, "c", chaos=net, extra_transports=[extra[i]],
+                                      **pkg.kw) for i in range(2)]
+    chans = [sh.router.open_channel(0x77, name="t", priority=1, encode=bytes,
+                                    decode=bytes) for sh in shells]
+    for sh in shells:
+        await sh.router.start()
+    shells[0].peer_manager.add_address(shells[1].address())
+    try:
+        for _ in range(200):
+            if shells[1].node_id in shells[0].peer_manager.connected_peers():
+                break
+            await asyncio.sleep(0.01)
+        for i in range(5):
+            await chans[0].out_q.put(pkg.types.Envelope(0x77, bytes([i]) * 40,
+                                                        to=shells[1].node_id))
+        got = [(await asyncio.wait_for(chans[1].in_q.get(), 5)).message for _ in range(5)]
+    finally:
+        for sh in shells:
+            await sh.router.stop()
+    wrapped = [(type(sh.transport).__name__, type(sh.transport.inner).__name__,
+                [type(t).__name__ for t in sh.extra_transports]) for sh in shells]
+    return wrapped, got, net.faults["corrupt"]
+
+
 def test_router_shell_refuses_chaos():
-    with pytest.raises(NotImplementedError, match="libs/chaos.py"):
-        p_testing.RouterShell(p_testing.MemoryNetwork(), 0, "c", chaos=object(), device="cpu")
+    """`RouterShell(chaos=)` wraps its memory transport and its extra
+    transports in the ChaosNetwork's `ChaosTransport`, as the reference
+    does, and the live byte path carries the fault plan: the frames
+    shell 0 sends arrive corrupted, byte-equal to the reference's. (The
+    port refused a chaos network until libs/chaos.py was ported.)"""
+    import tendermint_tpu.libs.chaos as j_chaos
+    import tendermint_tpu_torch.libs.chaos as p_chaos
+
     a = p_testing.RouterShell(p_testing.MemoryNetwork(), 3, "c", device="cpu")
     j = j_testing.RouterShell(j_testing.MemoryNetwork(), 3, "c")
     assert (a.node_id, a.node_info, str(a.address())) == (
         j.node_id, p_types.NodeInfo(**j.node_info.__dict__), str(j.address()))
+    ref = asyncio.run(asyncio.wait_for(_chaos_shells(REF, j_chaos), 30))
+    port = asyncio.run(asyncio.wait_for(_chaos_shells(PORT, p_chaos), 30))
+    assert port == ref
+    wrapped, got, corrupt = port
+    assert wrapped == [("ChaosTransport", "MemoryTransport", ["ChaosTransport"])] * 2
+    assert [type(t.inner).__name__ for t in (p_testing.RouterShell(
+        p_testing.MemoryNetwork(), 0, "c", chaos=p_chaos.ChaosNetwork(),
+        extra_transports=[p_tcp.TCPTransport()], device="cpu").extra_transports)] == \
+        ["TCPTransport"]
+    assert corrupt >= 5 and all(g != bytes([i]) * 40 for i, g in enumerate(got))
 
 
 # -- the peer manager ----------------------------------------------------------
